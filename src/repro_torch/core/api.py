@@ -4,8 +4,7 @@ Every search entry point of the port (`AdditionalIndexEngine`,
 `OrdinaryEngine`) consumes a `SearchRequest` and returns a
 `SearchResponse`; the types are the reference package's, field for field,
 so responses of the two packages compare directly.  The port's executors
-answer unranked phrase and near requests; `rank=True` and `mode="kword"`
-raise `NotImplementedError` until their slices land.
+answer phrase, near and K-word requests, ranked or not.
 
 Proximity relevance (arXiv:2108.00410)
 --------------------------------------

@@ -24,6 +24,12 @@ bucket keys and padding, so row cuts and postings accounting are identical.
    sort (`torch.sort`) → banded intersection of every constraint group
    (kernels/ops.banded_intersect_rows: the CUDA intersect kernel on the
    card).  Near-stop (type 4) checks mask the seed's keys in the same step.
+   Ranked buckets also score every seed anchor: one banded min-(key
+   distance + |dist|) pass over (key, delta)-sorted constraint keys
+   (ops.banded_min_delta_rows: the CUDA min-delta kernel on the card).
+   K-word buckets decide `found` with the K-way span join over per-group
+   delta masks (ops.banded_delta_mask_rows: the CUDA delta-mask kernel on
+   the card, then ops.kword_window_hits).
 
 3. **Merge** — host-side, mirroring `Executor.execute` exactly: row keys are
    unioned per task, task results per query; a subplan with no positional
@@ -31,9 +37,10 @@ bucket keys and padding, so row cuts and postings accounting are identical.
    with fallback postings counted only when triggered.
 
 Queries that exceed the table caps (> G_CAP groups, > F_CAP unioned forms,
-splits overflowing F_SPLIT_CAP slots) or an index whose positions overflow
-the 17-bit packed domain fall back to the flexible executor per plan —
-identical results, just not batched.
+splits overflowing F_SPLIT_CAP slots, K-word windows wider than
+KW_DEVICE_MAX_WINDOW) or an index whose positions overflow the 17-bit
+packed domain fall back to the flexible executor per plan — identical
+results, just not batched.
 """
 from __future__ import annotations
 
@@ -47,14 +54,18 @@ from repro_torch.core.api import SearchRequest, SearchResponse
 from repro_torch.core.builder import IndexSet
 from repro_torch.core.executor import (SENTINEL, Executor, _next_pow2,
                                        arena_tensors, merge_subplan_results,
-                                       order_groups_seed_first, require_ported)
+                                       order_groups_seed_first, proximity_w)
 from repro_torch.core.fetch_tables import (DOCS_PER_SHARD, NO_DIST,
                                            TABLE_POS_BITS, alloc_batch_tables,
                                            pack_ns_checks)
+from repro_torch.core.kword import KW_DEVICE_MAX_WINDOW, MODE_KWORD
 from repro_torch.core.planner import MODE_PHRASE, QueryPlan
 from repro_torch.core.postings import (BLOCK, PHRASE_BIAS, POS_BITS,
                                        concat_packed, pad_block_multiple)
-from repro_torch.kernels.ops import (I32_SENTINEL, banded_intersect_rows,
+from repro_torch.kernels.ops import (I32_SENTINEL, SCORE_DELTA_BITS,
+                                     SCORE_DELTA_MASK, banded_delta_mask_rows,
+                                     banded_intersect_rows,
+                                     banded_min_delta_rows, kword_window_hits,
                                      unpack_postings)
 
 # table caps: a task exceeding these routes its whole plan to the flexible
@@ -179,11 +190,18 @@ class _Task:
     fallback: bool         # doc-only fallback task (stream-1)
     stop_checks: tuple     # seed group's near-stop checks
     mode: str = MODE_PHRASE
+    ranked: bool = False   # proximity scoring rides the bucket step
+    score_bias: float = 0.0   # n_slots - n_groups (see SubPlan.n_slots)
     rows: list = dataclasses.field(default_factory=list)
 
     def collect_keys(self) -> np.ndarray:
         parts = [r.keys for r in self.rows if r.keys is not None and len(r.keys)]
         return np.concatenate(parts) if parts else np.empty(0, np.int64)
+
+    def collect_scores(self) -> np.ndarray:
+        parts = [r.scores for r in self.rows
+                 if r.scores is not None and len(r.scores)]
+        return np.concatenate(parts) if parts else np.empty(0, np.float32)
 
 
 @dataclasses.dataclass
@@ -199,11 +217,14 @@ class _Row:
     shard_base: int        # first doc of the shard (re-basing origin)
     groups: list           # seed-first ordered _RowGroups, shard-clipped
     sortfree: bool = False  # constraint keys already ascending (see below)
-    keys: np.ndarray | None = None     # filled after execution
+    # filled after execution:
+    keys: np.ndarray | None = None
+    scores: np.ndarray | None = None   # ranked rows only, aligned with keys
 
 
 def bucket_step_math(arena: dict, t: dict, *, P0: int, P: int,
-                     presorted: bool = False):
+                     presorted: bool = False, ranked: bool = False,
+                     kword: bool = False):
     """One shape bucket of segmented rows: gather posting ordinals → unpack
     (ops.unpack_postings over the bit-packed block arena) → keys → per-row
     int32 rebase against `shard_base` → sort → banded rows intersection.
@@ -211,7 +232,10 @@ def bucket_step_math(arena: dict, t: dict, *, P0: int, P: int,
     RAREST list, so the membership probe side stays narrow while constraint
     groups pad to P.  `arena` is BatchDeviceIndex.device_arena, `t` the
     bucket's tables as tensors on the same device.  Returns (seed global
-    keys [T, F*P0] int64, found [T, F*P0] bool)."""
+    keys [T, F*P0] int64, found [T, F*P0] bool) — plus proximity scores
+    [T, F*P0] float32 when `ranked` (api.py: bias + w(seed delta) + the sum
+    over constraint groups of w(banded min key distance + stored |dist|
+    delta)).  `kword` buckets decide `found` with the K-way span join."""
     T, G, F = t["start"].shape
     near_stop = arena["near_stop"]
     A = arena["blk_meta"].shape[0] * BLOCK
@@ -220,8 +244,8 @@ def bucket_step_math(arena: dict, t: dict, *, P0: int, P: int,
     dev = t["start"].device
 
     def gather(lo: int, hi: int, Pw: int):
-        """Posting ordinals and keys of groups [lo, hi) padded to Pw:
-        [T, g, F, Pw]."""
+        """Posting ordinals, keys and (ranked) per-posting score deltas of
+        groups [lo, hi) padded to Pw: [T, g, F, Pw]."""
         start, length = t["start"][:, lo:hi], t["length"][:, lo:hi]
         offset, req = t["offset"][:, lo:hi], t["req_dist"][:, lo:hi]
         maxab, pfd = t["max_abs"][:, lo:hi], t["pivot_from_dist"][:, lo:hi]
@@ -239,9 +263,13 @@ def bucket_step_math(arena: dict, t: dict, *, P0: int, P: int,
         doc64 = doc.long()
         gk = torch.where(dt1[:, None, None, None], doc64,
                          (doc64 << POS_BITS) | low)
-        return idx, torch.where(valid, gk, SENTINEL)
+        delta = None
+        if ranked:
+            sfd = t["score_from_dist"][:, lo:hi]
+            delta = torch.where(sfd[..., None], dist.abs(), 0)
+        return idx, torch.where(valid, gk, SENTINEL), delta
 
-    idx0, gk0 = gather(0, 1, P0)
+    idx0, gk0, delta0 = gather(0, 1, P0)
     gk0 = gk0[:, 0]                                            # [T, F, P0]
 
     # near-stop verification on the seed group (type-4 pivot checks)
@@ -272,21 +300,73 @@ def bucket_step_math(arena: dict, t: dict, *, P0: int, P: int,
 
     a64 = gk0.reshape(T, F * P0)
     a32 = rebase(gk0, dt1[:, None, None], base[:, None, None]).reshape(T, F * P0)
-    if G > 1:
-        _, gkc = gather(1, G, P)                               # [T, G-1, F, P]
-        b32 = rebase(gkc, dt1[:, None, None, None],
-                     base[:, None, None, None]).reshape(T, G - 1, F * P)
-        if not presorted:
-            b32 = torch.sort(b32, dim=-1).values
-        a_rows = a32[:, None].expand(T, G - 1, F * P0)
-        hit = banded_intersect_rows(
-            a_rows.reshape(T * (G - 1), F * P0),
-            b32.reshape(T * (G - 1), F * P),
-            t["band"][:, 1:].reshape(-1))
-        hit = hit.reshape(T, G - 1, F * P0) | ~t["active"][:, 1:, None]
-        found = hit.all(dim=1)
+    found = torch.ones((T, F * P0), dtype=torch.bool, device=dev)
+    if ranked:
+        # proximity scores in the reference's accumulation order: per-task
+        # bias, the seed's own delta, then each constraint group seed-first
+        score = t["score_bias"][:, None] \
+            + proximity_w(delta0[:, 0].reshape(T, F * P0))
+    if G == 1:
+        # no constraint group (the reference's `G > 1` guard): every valid
+        # seed key is a hit
+        found &= a32 != I32_SENTINEL
+        return (a64, found, torch.where(found, score, 0.0)) if ranked \
+            else (a64, found)
+    _, gkc, deltac = gather(1, G, P)                           # [T, G-1, F, P]
+    b32 = rebase(gkc, dt1[:, None, None, None],
+                 base[:, None, None, None]).reshape(T, G - 1, F * P)
+    bands = t["band"][:, 1:]                                   # [T, G-1]
+    active_c = t["active"][:, 1:]
+    a_rows = a32[:, None].expand(T, G - 1, F * P0).reshape(T * (G - 1), F * P0)
+
+    def kword_found(b32_sorted):
+        """K-way windowed span join: per-group signed delta masks, window
+        start scans ANDed across groups (core/kword.py).  Every active
+        constraint group of a kword task is banded at the task's window W,
+        so the row's W is the max over group bands (inactive pads are band
+        0 and never constrain)."""
+        masks = banded_delta_mask_rows(
+            a_rows, b32_sorted.reshape(T * (G - 1), F * P), bands.reshape(-1))
+        masks = masks.reshape(T, G - 1, F * P0).transpose(0, 1)
+        return kword_window_hits(masks, active_c.transpose(0, 1),
+                                 bands.max(dim=1).values)
+
+    if ranked:
+        # Constraint keys sort as (key, delta) composites (pads 1 << 40 sort
+        # last and never fall inside a band of a real key < 2**30), split
+        # back into key and delta planes for one min-delta pass per bucket.
+        dl = deltac.reshape(T, G - 1, F * P)
+        pad = 1 << 40
+        comp = torch.sort(torch.where(
+            b32 == I32_SENTINEL, pad,
+            (b32.long() << SCORE_DELTA_BITS) | dl.long()), dim=-1).values
+        bk = torch.where(comp >= pad, I32_SENTINEL,
+                         comp >> SCORE_DELTA_BITS).to(torch.int32)
+        bd = (comp & SCORE_DELTA_MASK).to(torch.int32)
+        delta_g = banded_min_delta_rows(
+            a_rows, bk.reshape(T * (G - 1), F * P),
+            bd.reshape(T * (G - 1), F * P),
+            bands.reshape(-1)).reshape(T, G - 1, F * P0)
+        for gi in range(G - 1):
+            hit_g = delta_g[:, gi] < I32_SENTINEL
+            live = hit_g & active_c[:, gi, None]
+            score = score + torch.where(live, proximity_w(delta_g[:, gi]), 0.0)
+            found &= hit_g | ~active_c[:, gi, None]
+        if kword:
+            # found is the span join; a span match implies an in-band hit
+            # for every group, so the score above is exact for every
+            # survivor (and zeroed below for the rest)
+            found = kword_found(torch.sort(b32, dim=-1).values)
+        found &= a32 != I32_SENTINEL
+        return a64, found, torch.where(found, score, 0.0)
+    if not presorted:
+        b32 = torch.sort(b32, dim=-1).values
+    if kword:
+        found = kword_found(b32)
     else:
-        found = torch.ones((T, F * P0), dtype=torch.bool, device=dev)
+        hit = banded_intersect_rows(a_rows, b32.reshape(T * (G - 1), F * P),
+                                    bands.reshape(-1))
+        found = (hit.reshape(T, G - 1, F * P0) | ~active_c[:, :, None]).all(dim=1)
     return a64, found & (a32 != I32_SENTINEL)
 
 
@@ -322,13 +402,17 @@ class BatchExecutor:
 
     # -- tensorization (the caps are read at call time: tests shrink them)
 
-    def _task_fits(self, groups) -> bool:
+    def _task_fits(self, groups, kword: bool = False) -> bool:
         if len(groups) > G_CAP:
             return False
         for g in groups:
             if len(g.fetches) > F_CAP:
                 return False
             if int(g.band) > self._pos_budget:
+                return False
+            # kword delta masks are int32 bitfields over d in [-W, W]: wider
+            # windows ride the flexible escape path (int64 masks, W <= 31)
+            if kword and int(g.band) > KW_DEVICE_MAX_WINDOW:
                 return False
             for f in g.fetches:
                 if f.stream == "first" and not _is_first_group(g):
@@ -401,9 +485,12 @@ class BatchExecutor:
                              groups=groups, sortfree=sortfree))
         return rows
 
-    def _build_tasks(self, plan_i: int, plan: QueryPlan, tasks: list) -> bool:
+    def _build_tasks(self, plan_i: int, plan: QueryPlan, tasks: list,
+                     ranked: bool = False) -> bool:
         """Append tasks (with segmented rows) for one plan; False => route
-        plan to the flexible executor (table caps exceeded)."""
+        plan to the flexible executor (table caps exceeded).  Ranked main
+        tasks seed with the first band-0 group in plan order (see
+        order_groups_seed_first) and carry their score bias."""
         if self._pos_budget <= 0:
             return False
         out = []
@@ -412,14 +499,17 @@ class BatchExecutor:
                 continue
             main_dead = (not sp.groups) or any(not g.fetches for g in sp.groups)
             if not main_dead:
-                ordered = order_groups_seed_first(sp.groups)
-                if ordered is None or not self._task_fits(ordered):
+                ordered = order_groups_seed_first(sp.groups, ranked=ranked)
+                if ordered is None or not self._task_fits(
+                        ordered, kword=sp.mode == MODE_KWORD):
                     return False
                 checks = ordered[0].fetches[0].stop_checks
                 if any(f.stop_checks != checks for f in ordered[0].fetches) or \
                    any(f.stop_checks for g in ordered[1:] for f in g.fetches):
                     return False
-                task = _Task(plan_i, sp_i, False, checks, mode=sp.mode)
+                task = _Task(plan_i, sp_i, False, checks, mode=sp.mode,
+                             ranked=ranked,
+                             score_bias=float(sp.n_slots - len(sp.groups)))
                 task.rows = self._build_rows(task, ordered)
                 if task.rows is None:
                     return False
@@ -457,9 +547,11 @@ class BatchExecutor:
         else:
             C = M = 0
         # only big slabs are worth a separate sort-free bucket; for small P
-        # the sort is cheap and splitting buckets costs more steps
-        sortfree = row.sortfree and P >= 2048
-        return (G, F, P0, P, C, M, sortfree)
+        # the sort is cheap and splitting buckets costs more steps (ranked
+        # rows always sort: scoring needs the composite order)
+        sortfree = row.sortfree and P >= 2048 and not row.task.ranked
+        return (G, F, P0, P, C, M, sortfree, row.task.ranked,
+                row.task.mode == MODE_KWORD)
 
     def _tensorize_bucket(self, rows: list, G: int, F: int, C: int, M: int,
                           T_pad: int) -> dict:
@@ -468,6 +560,7 @@ class BatchExecutor:
             task = row.task
             t["doc_task"][ti] = task.fallback
             t["shard_base"][ti] = row.shard_base
+            t["score_bias"][ti] = task.score_bias
             if task.stop_checks:
                 pack_ns_checks(t, ti, task.stop_checks, self.dev.max_distance)
             for gi, g in enumerate(row.groups):
@@ -491,26 +584,33 @@ class BatchExecutor:
                     if f.max_abs_dist is not None:
                         t["max_abs"][ti, gi, fi] = f.max_abs_dist
                     t["pivot_from_dist"][ti, gi, fi] = bool(f.pivot_from_dist)
+                    t["score_from_dist"][ti, gi, fi] = \
+                        bool(f.score_delta_from_dist)
         return t
 
     # -- execution ----------------------------------------------------------
 
     @staticmethod
-    def _scatter_row_keys(part: list, a64: np.ndarray, found: np.ndarray):
-        """Assign each row its found seed keys — one pass over the hit mask
-        instead of T boolean-indexings."""
+    def _scatter_row_keys(part: list, a64: np.ndarray, found: np.ndarray,
+                          scores: np.ndarray | None = None):
+        """Assign each row its found seed keys (and scores, when ranked) —
+        one pass over the hit mask instead of T boolean-indexings."""
         hit_rows, cols = np.nonzero(found)
         keys = a64[hit_rows, cols]
         splits = np.searchsorted(hit_rows, np.arange(1, len(part)))
         for ti, row_keys in enumerate(np.split(keys, splits)):
             part[ti].keys = row_keys
+        if scores is not None:
+            svals = scores[hit_rows, cols].astype(np.float32)
+            for ti, row_scores in enumerate(np.split(svals, splits)):
+                part[ti].scores = row_scores
 
     def _run_rows(self, rows: list):
         buckets: dict = {}
         for row in rows:
             buckets.setdefault(self._bucket_key(row), []).append(row)
         d = self.dev
-        for (G, F, P0, P, C, M, sortfree), rs in buckets.items():
+        for (G, F, P0, P, C, M, sortfree, ranked, kword), rs in buckets.items():
             per_task = F * P0 + (G - 1) * F * P
             if C > 0:                  # near-stop gather adds an [F, P0, K] slab
                 per_task += F * P0 * int(d.near_stop_np.shape[1])
@@ -521,14 +621,18 @@ class BatchExecutor:
                 # tight T padding: big-P buckets usually hold 1-4 rows
                 T_pad = _next_pow2(len(part), floor=4)
                 t = self._tensorize_bucket(part, G, F, C, M, T_pad)
+                # the score columns are read only by ranked buckets: keep
+                # them off the copies of unranked ones
                 tt = {k: torch.from_numpy(v).to(self.device)
-                      for k, v in t.items()}
+                      for k, v in t.items()
+                      if ranked or k not in ("score_bias", "score_from_dist")}
                 t1 = time.perf_counter()
-                a64, found = bucket_step_math(d.device_arena, tt, P0=P0, P=P,
-                                              presorted=sortfree)
-                a64, found = a64.cpu().numpy(), found.cpu().numpy()
+                out = bucket_step_math(d.device_arena, tt, P0=P0, P=P,
+                                       presorted=sortfree, ranked=ranked,
+                                       kword=kword)
+                out = [x.cpu().numpy() for x in out]
                 t2 = time.perf_counter()
-                self._scatter_row_keys(part, a64, found)
+                self._scatter_row_keys(part, *out)
                 self.timings["tensorize"] += t1 - t0
                 self.timings["device"] += t2 - t1
 
@@ -536,7 +640,7 @@ class BatchExecutor:
 
     def _merge_plan(self, plan: QueryPlan, task_map: dict,
                     request: SearchRequest) -> SearchResponse:
-        all_keys, doc_only_keys = [], []
+        all_keys, all_scores, doc_only_keys = [], [], []
         postings = 0
         used_fallback = False
         types = []
@@ -547,33 +651,35 @@ class BatchExecutor:
             postings += sp.postings_read
             main = task_map.get((sp_i, False))
             keys = main.collect_keys() if main is not None else np.empty(0, np.int64)
+            scores = (main.collect_scores() if request.rank and main is not None
+                      else np.empty(0, np.float32))
             if len(keys) == 0 and sp.fallback_groups:
                 used_fallback = True
                 postings += sum(g.postings_read for g in sp.fallback_groups)
                 fb = task_map.get((sp_i, True))
                 dkeys = fb.collect_keys() if fb is not None else np.empty(0, np.int64)
                 doc_only_keys.append(dkeys)
-                keys = keys[:0]
+                keys, scores = keys[:0], scores[:0]
             all_keys.append(keys)
+            all_scores.append(scores)
         return merge_subplan_results(all_keys, doc_only_keys, postings,
-                                     used_fallback, tuple(types), request)
+                                     used_fallback, tuple(types), request,
+                                     all_scores=all_scores)
 
     # -- public API ---------------------------------------------------------
 
     def execute_batch(self, plans: list[QueryPlan],
                       requests: list[SearchRequest]) -> list[SearchResponse]:
-        """Requests align 1:1 with plans and carry top_k; plans stay the
-        executor's input so escape routing and table building see resolved
-        fetches only."""
-        for plan, request in zip(plans, requests):
-            require_ported(request, plan)
+        """Requests align 1:1 with plans and carry ranking / top_k; plans
+        stay the executor's input so escape routing and table building see
+        resolved fetches only."""
         t0 = time.perf_counter()
         tasks: list[_Task] = []
         flex_plans: dict[int, QueryPlan] = {}
         plan_tasks: dict[int, list] = {}
         for i, plan in enumerate(plans):
             start = len(tasks)
-            if self._build_tasks(i, plan, tasks):
+            if self._build_tasks(i, plan, tasks, ranked=requests[i].rank):
                 plan_tasks[i] = tasks[start:]
             else:
                 flex_plans[i] = plan

@@ -8,17 +8,20 @@ key plans) + the PyTorch executors.
 2.0.6): a single inverted index over every basic form, stop words included;
 every query reads the *full* posting list of every query word.
 
-Both consume `SearchRequest`s (`search` / `search_batch`) and return
-`SearchResponse`s.  They run on the card unless the caller asks for the CPU
-(`device="cpu"`, as the tests do); on the card the batched path launches the
-CUDA unpack and banded-intersect kernels.  This slice answers unranked
-phrase and near requests; ranked and K-word requests raise
-`NotImplementedError`.
+Both consume `SearchRequest`s (`search` / `search_batch`) — phrase, near
+and K-word, ranked or not — and return `SearchResponse`s, proximity-ranked
+DocHits when `rank=True`.  They run on the card unless the caller asks for
+the CPU (`device="cpu"`, as the tests do); on the card the batched path
+launches the CUDA unpack, banded-intersect, min-delta and delta-mask
+kernels.
 
 `brute_force_search` — O(corpus) numpy oracle used by tests and by
 chip_smoke.py to verify that indexed phrases are found exactly (paper:
 "Since phrases are selected from an already-indexed document, they should
-be precisely found").
+be precisely found"); `brute_force_ranked` — its scoring twin (literal
+nested-loop proximity relevance per arXiv:2108.00410);
+`brute_force_kword` / `brute_force_kword_ranked` — the K-word span oracles
+(arXiv:2009.02684).
 """
 from __future__ import annotations
 
@@ -30,11 +33,11 @@ from repro_torch.core.api import SearchRequest, SearchResponse
 from repro_torch.core.batch_executor import BatchExecutor
 from repro_torch.core.builder import IndexSet
 from repro_torch.core.corpus import Corpus
-from repro_torch.core.executor import Executor, require_ported, resolve_device
-from repro_torch.core.kword import MODE_KWORD
+from repro_torch.core.executor import Executor, resolve_device
+from repro_torch.core.kword import MODE_KWORD, pick_kword_anchor
 from repro_torch.core.planner import (FetchGroup, MODE_NEAR, MODE_PHRASE,
-                                      Planner, QueryPlan, ResolvedFetch,
-                                      SubPlan)
+                                      QTYPE_KWORD, Planner, QueryPlan,
+                                      ResolvedFetch, SubPlan)
 
 
 class _BatchSearchMixin:
@@ -60,7 +63,6 @@ class _BatchSearchMixin:
     def _plan(self, request: SearchRequest) -> QueryPlan:
         if not isinstance(request, SearchRequest):
             raise TypeError(f"expected a SearchRequest, got {type(request)}")
-        require_ported(request)
         return self.plan_request(request)
 
     def search(self, request: SearchRequest) -> SearchResponse:
@@ -95,7 +97,8 @@ class AdditionalIndexEngine(_BatchSearchMixin):
 
     def plan_request(self, request: SearchRequest) -> QueryPlan:
         return self.planner.plan(list(request.surface_ids),
-                                 mode=request.mode, window=request.window)
+                                 mode=request.mode, window=request.window,
+                                 ranked=request.rank)
 
 
 class OrdinaryEngine(_BatchSearchMixin):
@@ -122,8 +125,6 @@ class OrdinaryEngine(_BatchSearchMixin):
 
     def plan(self, surface_ids, mode: str = MODE_PHRASE,
              window: int | None = None) -> QueryPlan:
-        if mode == MODE_KWORD:
-            raise NotImplementedError("K-word search is ported in a later slice")
         if window is None:
             window = self.index.params.near_window
         ana = self.index.analyzer
@@ -135,6 +136,24 @@ class OrdinaryEngine(_BatchSearchMixin):
         if mode == MODE_PHRASE:
             for i, forms in enumerate(form_lists):
                 groups.append(self._slot_group(i, forms, band=0))
+        elif mode == MODE_KWORD:
+            # the baseline pays full posting-list reads for every slot, stop
+            # words included; the anchor is the rarest slot that has a
+            # non-stop form (the span join needs an anchorable slot), and
+            # the K-way windowed join runs over the full lists
+            lex = self.index.lexicon
+            counts = [sum(int(self._counts[f]) for f in forms)
+                      for forms in form_lists]
+            nonstop = [i for i, forms in enumerate(form_lists)
+                       if not bool(lex.is_stop(np.asarray(forms)).all())]
+            eligible = nonstop or list(range(len(form_lists)))
+            anchor = min(eligible, key=lambda i: counts[i])
+            for i, forms in enumerate(form_lists):
+                groups.append(self._slot_group(i, forms,
+                                               band=0 if i == anchor else window))
+            return QueryPlan(subplans=[SubPlan(
+                qtype=QTYPE_KWORD, mode=MODE_KWORD, groups=groups,
+                n_slots=len(form_lists), kw_window=window)])
         else:
             counts = [sum(int(self._counts[f]) for f in forms) for forms in form_lists]
             pivot = int(np.argmin(counts))
@@ -322,3 +341,250 @@ def brute_force_search(corpus: Corpus, index: IndexSet, surface_ids,
         if docs:
             doc_level_all |= docs
     return positional, doc_level_all
+
+
+def brute_force_ranked(corpus: Corpus, index: IndexSet, surface_ids,
+                       mode: str = MODE_PHRASE, window: int | None = None,
+                       ranking=None):
+    """Ranked twin of `brute_force_search`: the proximity relevance model of
+    api.py computed by literal nested loops over the corpus — the reference
+    the engines' device scoring pass is checked against end to end.
+
+    Per tier-split subquery, every match anchor scores
+
+        sum over query slots i of w(d_i),     w(d) = 1 / (1 + d)
+
+    with d_i = 0 for the pivot and for every slot of a precise-phrase /
+    all-stop match (exact offsets), else the distance from the anchor to the
+    nearest same-document token matching slot i within the window.  Anchors
+    duplicated across subqueries keep their MAX score; a document's
+    relevance is the sum over its anchors times `ranking.proximity_scale`.
+
+    Returns (anchor_scores, doc_scores, doc_level): dicts keyed (doc, pos)
+    and doc (float64 — the engines accumulate float32, so compare with
+    tolerance), plus the doc-only fallback truth set (relevance
+    `ranking.doc_only_score`, only reachable when no subquery has a
+    positional match).
+    """
+    from repro_torch.core.api import RankingParams
+    from repro_torch.core.lexicon import TIER_STOP
+    from repro_torch.core.planner import pick_pivot
+
+    ranking = ranking or RankingParams()
+    lexicon, analyzer, params = index.lexicon, index.analyzer, index.params
+    if window is None:
+        window = params.near_window
+    occ_counts = index.base_occ_counts()
+    tf_prim = analyzer.primary[corpus.tokens]
+    tf_sec = analyzer.secondary[corpus.tokens]
+    doc_of = corpus.doc_ids_per_token()
+    pos_of = corpus.positions_per_token()
+    T = corpus.n_tokens
+
+    def token_matches(slot_forms):
+        m = np.isin(tf_prim, list(slot_forms))
+        m |= np.isin(tf_sec, list(slot_forms)) & (tf_sec >= 0)
+        return m
+
+    anchor_scores: dict = {}
+    doc_level_all: set = set()
+
+    def put(anchor, score):
+        prev = anchor_scores.get(anchor)
+        if prev is None or score > prev:
+            anchor_scores[anchor] = score
+
+    for tiered in _tier_splits([analyzer.forms_of(s) for s in surface_ids],
+                               lexicon):
+        tiers = [t for t, _ in tiered]
+        n = len(tiered)
+        if all(t == TIER_STOP for t in tiers):
+            if n >= params.min_len:
+                for anchor in _stop_multiset_anchor_set(
+                        tiered, tf_prim, tf_sec, doc_of, pos_of, lexicon,
+                        params):
+                    put(anchor, float(n))       # exact offsets: n * w(0)
+            continue                            # stop-only: no doc fallback
+        matches = [token_matches(forms) for _, forms in tiered]
+        if mode == MODE_PHRASE:
+            ok = matches[0][: T - n + 1].copy()
+            for i in range(1, n):
+                ok &= matches[i][i: T - n + 1 + i]
+            if n > 1:
+                ok &= doc_of[: T - n + 1] == doc_of[n - 1:]
+            for t in np.nonzero(ok)[0]:
+                put((int(doc_of[t]), int(pos_of[t])), float(n))
+        else:
+            pivot = pick_pivot(tiered, occ_counts)
+            for t in np.nonzero(matches[pivot])[0]:
+                score = 1.0                     # the pivot slot: w(0)
+                good = True
+                for i, m in enumerate(matches):
+                    if i == pivot:
+                        continue
+                    lo, hi = max(0, t - window), min(T, t + window + 1)
+                    near = np.nonzero(m[lo:hi]
+                                      & (doc_of[lo:hi] == doc_of[t]))[0]
+                    if len(near) == 0:
+                        good = False
+                        break
+                    delta = int(np.abs(near + lo - t).min())
+                    score += 1.0 / (1.0 + delta)
+                if good:
+                    put((int(doc_of[t]), int(pos_of[t])), score)
+        # doc-level (stream-1 fallback) truth: non-stop words only
+        docs = None
+        for (tr, forms), m in zip(tiered, matches):
+            if tr == TIER_STOP:
+                continue
+            d = set(np.unique(doc_of[m]).tolist())
+            docs = d if docs is None else (docs & d)
+        if docs:
+            doc_level_all |= docs
+
+    scale = float(ranking.proximity_scale)
+    anchor_scores = {k: v * scale for k, v in anchor_scores.items()}
+    doc_scores: dict = {}
+    for (d, _p), s in anchor_scores.items():
+        doc_scores[d] = doc_scores.get(d, 0.0) + s
+    return anchor_scores, doc_scores, doc_level_all
+
+
+# ---------------------------------------------------------------------------
+# K-word proximity oracle (arXiv:2009.02684; planner QTYPE_KWORD)
+# ---------------------------------------------------------------------------
+
+def _kword_tier_hits(tiered, matches, anchor, window, doc_of, pos_of, T):
+    """Literal nested-loop span matching for one tier-split subquery: yields
+    (doc, pos, score) for every anchor occurrence where some assignment of
+    one occurrence per remaining slot fits inside a (window + 1)-wide span
+    containing the anchor — the window-start scan is spelled out as loops,
+    nothing shared with the executors' mask math.  `score` is the ranked
+    model's anchor score: w(0) for the anchor plus, per remaining slot, w of
+    the nearest in-window occurrence (the banded min the executors read)."""
+    for t in np.nonzero(matches[anchor])[0]:
+        d = doc_of[t]
+        cands = []
+        good = True
+        for i, m in enumerate(matches):
+            if i == anchor:
+                continue
+            lo, hi = max(0, t - window), min(T, t + window + 1)
+            idx = np.nonzero(m[lo:hi] & (doc_of[lo:hi] == d))[0]
+            if len(idx) == 0:
+                good = False
+                break
+            cands.append((idx + lo - t).astype(int))
+        if not good:
+            continue
+        ok = False
+        for w0 in range(-window, 1):          # window starts containing t
+            if all(any(w0 <= dd <= w0 + window for dd in c) for c in cands):
+                ok = True
+                break
+        if not ok:
+            continue
+        score = 1.0 + sum(1.0 / (1.0 + int(np.abs(c).min())) for c in cands)
+        yield int(d), int(pos_of[t]), score
+
+
+def brute_force_kword(corpus: Corpus, index: IndexSet, surface_ids,
+                      window: int):
+    """O(corpus) K-word span oracle: anchors are occurrences of the rarest
+    non-stop slot (pick_kword_anchor — the planner's anchor rule); an anchor
+    matches iff every other query word has an occurrence such that ALL K
+    words fall inside one (window + 1)-wide position span.  Tier-split like
+    the engine; all-stop tier combinations are unsupported (no anchor) and
+    contribute nothing, mirroring the planner.
+
+    Returns (positional, doc_matches): positional = set[(doc, anchor_pos)];
+    doc_matches = distance-disregarding doc-level intersection of the
+    non-stop words (the stream-1 fallback's ground truth)."""
+    lexicon, analyzer = index.lexicon, index.analyzer
+    occ_counts = index.base_occ_counts()
+    tf_prim = analyzer.primary[corpus.tokens]
+    tf_sec = analyzer.secondary[corpus.tokens]
+    doc_of = corpus.doc_ids_per_token()
+    pos_of = corpus.positions_per_token()
+    T = corpus.n_tokens
+    from repro_torch.core.lexicon import TIER_STOP
+
+    def token_matches(slot_forms):
+        m = np.isin(tf_prim, list(slot_forms))
+        m |= np.isin(tf_sec, list(slot_forms)) & (tf_sec >= 0)
+        return m
+
+    positional = set()
+    doc_level_all = set()
+    for tiered in _tier_splits([analyzer.forms_of(s) for s in surface_ids],
+                               lexicon):
+        anchor = pick_kword_anchor(tiered, occ_counts)
+        if anchor < 0:
+            continue                         # all-stop: unsupported subplan
+        matches = [token_matches(forms) for _, forms in tiered]
+        for d, p, _s in _kword_tier_hits(tiered, matches, anchor, window,
+                                         doc_of, pos_of, T):
+            positional.add((d, p))
+        docs = None
+        for (t, _forms), m in zip(tiered, matches):
+            if t == TIER_STOP:
+                continue
+            dset = set(np.unique(doc_of[m]).tolist())
+            docs = dset if docs is None else (docs & dset)
+        if docs:
+            doc_level_all |= docs
+    return positional, doc_level_all
+
+
+def brute_force_kword_ranked(corpus: Corpus, index: IndexSet, surface_ids,
+                             window: int, ranking=None):
+    """Ranked twin of `brute_force_kword` (same shapes as
+    `brute_force_ranked`): every span-matching anchor scores w(0) for the
+    anchor slot plus w(nearest in-window distance) per remaining slot —
+    exactly the banded min-delta accumulation the executors run, with
+    found overridden by the span join.  Duplicate anchors across tier-split
+    subqueries keep their MAX score; doc relevance sums a doc's anchors."""
+    from repro_torch.core.api import RankingParams
+    from repro_torch.core.lexicon import TIER_STOP
+
+    ranking = ranking or RankingParams()
+    lexicon, analyzer = index.lexicon, index.analyzer
+    occ_counts = index.base_occ_counts()
+    tf_prim = analyzer.primary[corpus.tokens]
+    tf_sec = analyzer.secondary[corpus.tokens]
+    doc_of = corpus.doc_ids_per_token()
+    pos_of = corpus.positions_per_token()
+    T = corpus.n_tokens
+
+    def token_matches(slot_forms):
+        m = np.isin(tf_prim, list(slot_forms))
+        m |= np.isin(tf_sec, list(slot_forms)) & (tf_sec >= 0)
+        return m
+
+    anchor_scores: dict = {}
+    doc_level_all: set = set()
+    for tiered in _tier_splits([analyzer.forms_of(s) for s in surface_ids],
+                               lexicon):
+        anchor = pick_kword_anchor(tiered, occ_counts)
+        if anchor < 0:
+            continue
+        matches = [token_matches(forms) for _, forms in tiered]
+        for d, p, s in _kword_tier_hits(tiered, matches, anchor, window,
+                                        doc_of, pos_of, T):
+            prev = anchor_scores.get((d, p))
+            if prev is None or s > prev:
+                anchor_scores[(d, p)] = s
+        docs = None
+        for (t, _forms), m in zip(tiered, matches):
+            if t == TIER_STOP:
+                continue
+            dset = set(np.unique(doc_of[m]).tolist())
+            docs = dset if docs is None else (docs & dset)
+        if docs:
+            doc_level_all |= docs
+    scale = float(ranking.proximity_scale)
+    anchor_scores = {k: v * scale for k, v in anchor_scores.items()}
+    doc_scores: dict = {}
+    for (d, _p), s in anchor_scores.items():
+        doc_scores[d] = doc_scores.get(d, 0.0) + s
+    return anchor_scores, doc_scores, doc_level_all

@@ -4,8 +4,7 @@ The planner resolves every posting fetch to an explicit (start, length) slice
 (planner.py); the batched executor (core/batch_executor.py) consumes those
 plans as fixed-shape integer tables instead of Python loops.  The schema is
 the reference package's, column for column, so both packages cut a batch
-into the same rows (the ranked slice's score columns are not carried
-yet).
+into the same rows.
 
 Every subplan of every query becomes one or more *rows* (one per doc shard
 the seed list touches — the shard-segmented gather), with F fetch slots per
@@ -16,10 +15,14 @@ v) triples anchor at the pivot with `max_abs` alone) / long-list splits:
 
     start/length/offset/req_dist/max_abs : int32 [T, G, F]
     pivot_from_dist                      : bool  [T, G, F]
+    score_from_dist                      : bool  [T, G, F] (ranked: slot delta
+                                                            = |dist| payload)
     band                                 : int32 [T, G]
     active                               : bool  [T, G]
     doc_task                             : bool  [T]       (doc-level fallback)
     shard_base                           : int32 [T]       (row's first doc)
+    score_bias                           : f32   [T]       (ranked: per-task
+                                                            n_slots - n_groups)
     ns_packed                            : int16 [T, C, M]
     ns_valid                             : bool  [T, C, M]
 
@@ -46,6 +49,11 @@ from __future__ import annotations
 import numpy as np
 
 from repro_torch.core.postings import NS_SHIFT
+# ranked scoring: constraint keys sort as (key << SCORE_DELTA_BITS | delta)
+# int64 composites, so the FIRST entry of an equal-key run carries the run's
+# minimum slot delta (|dist| <= near_window <= 15 fits 4 bits); the kernel
+# layer owns the layout
+from repro_torch.kernels.ops import SCORE_DELTA_BITS  # noqa: F401
 
 TABLE_POS_BITS = 17            # in-doc position < 131072
 TABLE_BIAS = 64                # headroom so (pos - offset) never underflows
@@ -54,6 +62,7 @@ NO_MAX_ABS = np.int32(2**20)   # |dist| cap wildcard (always satisfied)
 
 # doc_local must fit (30 - TABLE_POS_BITS) bits so packed keys stay < 2**30
 DOCS_PER_SHARD = 1 << (30 - TABLE_POS_BITS)
+
 
 def alloc_batch_tables(T: int, G: int, F: int, C: int, M: int) -> dict:
     """Zero-initialized numpy tables per the batch-executor schema."""
@@ -64,10 +73,12 @@ def alloc_batch_tables(T: int, G: int, F: int, C: int, M: int) -> dict:
         "req_dist": np.full((T, G, F), NO_DIST, np.int32),
         "max_abs": np.full((T, G, F), NO_MAX_ABS, np.int32),
         "pivot_from_dist": np.zeros((T, G, F), bool),
+        "score_from_dist": np.zeros((T, G, F), bool),
         "band": np.zeros((T, G), np.int32),
         "active": np.zeros((T, G), bool),
         "doc_task": np.zeros((T,), bool),
         "shard_base": np.zeros((T,), np.int32),
+        "score_bias": np.zeros((T,), np.float32),
         "ns_packed": np.full((T, C, M), -1, np.int16),
         "ns_valid": np.zeros((T, C, M), bool),
     }

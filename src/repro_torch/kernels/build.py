@@ -26,7 +26,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-SOURCES = ("unpack", "intersect")
+SOURCES = ("unpack", "intersect", "min_delta", "delta_mask")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,6 +38,10 @@ SIGNATURES = {
                (_VP, _LL, _VP, _LL, _VP, _LL, _VP, _VP, _VP, _VP)),
     "intersect": ("banded_intersect_rows_launch",
                   (_VP, _VP, _VP, _LL, _LL, _LL, _VP, _VP)),
+    "min_delta": ("banded_min_delta_rows_launch",
+                  (_VP, _VP, _VP, _VP, _LL, _LL, _LL, _VP, _VP)),
+    "delta_mask": ("banded_delta_mask_rows_launch",
+                   (_VP, _VP, _VP, _LL, _LL, _LL, _VP, _VP)),
 }
 
 

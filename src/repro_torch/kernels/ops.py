@@ -5,19 +5,30 @@ hand-written kernel (unpack.py, intersect.py; sources in csrc/) or raises,
 a CPU tensor takes the plain version below.  The plain versions are pure
 tensor code that runs on either device; the CPU tests hold them against the
 reference package, and chip_smoke.py holds the kernels against them on the
-card.
+card.  The K-word window scan (`delta_mask_t_bits`, `kword_window_hits`)
+is plain tensor code on both devices, as it is jnp outside any Pallas
+kernel in the reference.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.intersect import banded_intersect_rows_cuda
+from repro_torch.kernels.intersect import (banded_delta_mask_rows_cuda,
+                                           banded_intersect_rows_cuda,
+                                           banded_min_delta_rows_cuda)
 from repro_torch.kernels.unpack import unpack_postings_cuda
 
 I32_SENTINEL = 2**31 - 1     # int32 pad key: never matches a banded probe
+KW_MAX_BAND = 15             # K-word delta masks: bit (d + band) <= 30
+
+# ranked scoring's composite layout, owned here and read by core: a
+# constraint key sorts as (key << SCORE_DELTA_BITS | delta), delta in
+# [0, SCORE_DELTA_MASK] (|dist| <= near_window <= 15)
+SCORE_DELTA_BITS = 4
+SCORE_DELTA_MASK = (1 << SCORE_DELTA_BITS) - 1
 
 # packed-postings block geometry (== core.postings.BLOCK_LOG2 and
-# PACK_WIDTH_BITS; literal so the kernel layer stays import-free of core)
+# PACK_WIDTH_BITS); literal so the kernel layer stays import-free of core
 _BLOCK_LOG2 = 7
 _BLOCK = 1 << _BLOCK_LOG2
 _WBITS = 6
@@ -102,3 +113,118 @@ def banded_intersect(a: torch.Tensor, b_sorted: torch.Tensor,
     `banded_intersect_rows` with a constant band."""
     bands = torch.full((1,), band, dtype=torch.int32, device=a.device)
     return banded_intersect_rows(a[None], b_sorted[None], bands)[0]
+
+
+# ---------------------------------------------------------------------------
+# banded minimum delta (ranked scoring)
+# ---------------------------------------------------------------------------
+
+def banded_min_delta_rows_plain(a: torch.Tensor, bk: torch.Tensor,
+                                bd: torch.Tensor,
+                                bands: torch.Tensor) -> torch.Tensor:
+    """out[n, i] = min over j with |a[n, i] - bk[n, j]| <= bands[n] of
+    (|a[n, i] - bk[n, j]| + bd[n, j]), I32_SENTINEL where no j is in band
+    or a[n, i] is the sentinel.  a [N, Pa]; bk, bd [N, Pb] with each row
+    sorted by (bk, bd) and bd in [0, 15]; bands [N]; int32.
+
+    The general minimum, as the reference's Pallas kernel computes it (rows
+    with band > 0 may carry non-zero deltas): for each offset d in
+    [-max band, max band] one searchsorted of the composite
+    (a + d) << SCORE_DELTA_BITS into the row's (bk, bd) composites finds the first entry at key
+    a + d, which carries that key's minimum delta.  O((2W + 1) Pa log Pb),
+    in int64 so `a + d` cannot wrap."""
+    N, pa = a.shape
+    pb = bk.shape[1]
+    out = torch.full((N, pa), I32_SENTINEL, dtype=torch.int32,
+                     device=a.device)
+    if N * pa * pb == 0:
+        return out
+    a64 = a.long()
+    comp = ((bk.long() << SCORE_DELTA_BITS) | bd.long()).contiguous()
+    band = bands.long()[:, None]
+    best = torch.full((N, pa), I32_SENTINEL, dtype=torch.int64,
+                      device=a.device)
+    width = max(int(band.max()), -1)
+    for d in range(-width, width + 1):
+        key = a64 + d
+        idx = torch.searchsorted(comp, (key << SCORE_DELTA_BITS).contiguous(),
+                                 side="left")
+        e = comp.gather(1, idx.clamp(max=pb - 1))
+        hit = (idx < pb) & ((e >> SCORE_DELTA_BITS) == key) & (abs(d) <= band)
+        best = torch.where(hit, torch.minimum(best, abs(d) + (e & SCORE_DELTA_MASK)), best)
+    return torch.where(a == I32_SENTINEL, out, best.int())
+
+
+def banded_min_delta_rows(a: torch.Tensor, bk: torch.Tensor, bd: torch.Tensor,
+                          bands: torch.Tensor) -> torch.Tensor:
+    """Batched banded minimum delta (see banded_min_delta_rows_plain) — the
+    CUDA kernel on the card, the plain version on the CPU."""
+    if _on_cpu(a, "banded_min_delta_rows"):
+        return banded_min_delta_rows_plain(a, bk, bd, bands)
+    return banded_min_delta_rows_cuda(a, bk, bd, bands)
+
+
+# ---------------------------------------------------------------------------
+# K-word delta masks and window scan
+# ---------------------------------------------------------------------------
+
+def banded_delta_mask_rows_plain(a: torch.Tensor, b_sorted: torch.Tensor,
+                                 bands: torch.Tensor) -> torch.Tensor:
+    """out[n, i] has bit (d + bands[n]) set iff b_sorted[n] holds a[n, i] + d
+    for a d with |d| <= bands[n] (d in [-15, 15]; bit indices clip to
+    [0, 31]); 0 where a[n, i] is the sentinel.  a [N, Pa], b_sorted
+    [N, Pb] ascending per row, bands [N], int32 — the reference's ref
+    loop, in int64 so `a + d` cannot wrap."""
+    a64 = a.long()
+    b64 = b_sorted.long().contiguous()
+    band = bands.long()[:, None]
+    one = torch.ones((), dtype=torch.int32, device=a.device)
+    mask = torch.zeros_like(a)
+    for d in range(-KW_MAX_BAND, KW_MAX_BAND + 1):
+        lo = torch.searchsorted(b64, a64 + d, side="left")
+        hi = torch.searchsorted(b64, a64 + d, side="right")
+        present = (hi > lo) & (abs(d) <= band)
+        bit = one << (d + band).clamp(0, 31).int()
+        mask |= torch.where(present, bit, 0).int()
+    return torch.where(a == I32_SENTINEL, 0, mask)
+
+
+def banded_delta_mask_rows(a: torch.Tensor, b_sorted: torch.Tensor,
+                           bands: torch.Tensor) -> torch.Tensor:
+    """Batched signed-delta bitmask (see banded_delta_mask_rows_plain) — the
+    CUDA kernel on the card, the plain version on the CPU."""
+    if _on_cpu(a, "banded_delta_mask_rows"):
+        return banded_delta_mask_rows_plain(a, b_sorted, bands)
+    return banded_delta_mask_rows_cuda(a, b_sorted, bands)
+
+
+def delta_mask_t_bits(mask: torch.Tensor, bands: torch.Tensor) -> torch.Tensor:
+    """Per-group window scan of a delta mask: bit t of the result is set iff
+    ((mask >> t) & low(W + 1)) != 0 for t in [0, W], W = bands[n] <= 15 —
+    the group has a candidate inside the window starting at offset t - W
+    from the anchor.  mask [N, Pa] int32, bands [N] int32."""
+    one = torch.ones((), dtype=torch.int32, device=mask.device)
+    low = ((one << (bands + 1)) - 1)[:, None]
+    bits = torch.zeros_like(mask)
+    for t in range(KW_MAX_BAND + 1):
+        hit = (((mask >> t) & low) != 0) & (t <= bands)[:, None]
+        bits |= torch.where(hit, 1 << t, 0).int()
+    return bits
+
+
+def kword_window_hits(masks: torch.Tensor, active: torch.Tensor,
+                      bands: torch.Tensor) -> torch.Tensor:
+    """The K-word match bit from per-group delta masks: masks [G, N, Pa]
+    int32, active [G, N] bool (dead groups never constrain), bands [N]
+    int32.  Anchor i matches iff some window start t in [0, W] intersects
+    every active group's mask in bits [t, t + W] — all K words inside one
+    (W + 1)-wide window containing the anchor.  Returns bool [N, Pa]."""
+    if masks.shape[0] == 0:
+        return torch.zeros(masks.shape[1:], dtype=torch.bool,
+                           device=masks.device)
+    t_ok = None
+    for g in range(masks.shape[0]):
+        bits = torch.where(active[g][:, None],
+                           delta_mask_t_bits(masks[g], bands), -1)
+        t_ok = bits if t_ok is None else (t_ok & bits)
+    return t_ok != 0

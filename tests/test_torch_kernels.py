@@ -15,6 +15,7 @@ from repro_torch.core.postings import BLOCK, PACK_WIDTHS, PackedPostings
 from repro_torch.kernels import ops
 
 I32_MAX = np.iinfo(np.int32).max
+SDB, SDM = ops.SCORE_DELTA_BITS, ops.SCORE_DELTA_MASK   # (key, delta) layout
 
 
 @pytest.fixture(scope="module")
@@ -201,6 +202,160 @@ def test_banded_intersect_single_row_matches_pallas(ref, band):
     assert np.array_equal(got.numpy(), want)
 
 
+def _scored_rows(rng, n_rows, pa, pb, plan_domain=False):
+    """Min-delta rows: the rows of `_rebased_rows` folded onto four docs,
+    with a delta in [0, 15] beside every b key, each row sorted by (key, delta) — so the run of
+    equal keys across the 128-block boundary carries mixed deltas — and
+    bands 0, 1, 8 and 15.  `plan_domain` zeroes the deltas of band > 0
+    rows, the only rows on which the reference's two-probe ref path is
+    exact; otherwise those rows carry non-zero deltas too.  Sentinel pads
+    carry delta 0, as the batch executor's composite split leaves them."""
+    a, b, _ = _rebased_rows(rng, n_rows, pa, pb)
+    # four docs instead of 64: dense rows, so bands hold several keys
+    a = np.where(a == I32_MAX, a, a & ((4 << 17) - 1))
+    b = np.sort(np.where(b == I32_MAX, b, b & ((4 << 17) - 1)), axis=1)
+    bands = rng.choice([0, 1, 8, 15], n_rows).astype(np.int32)
+    bands[:4] = [0, 1, 8, 15][:min(4, n_rows)]
+    bd = rng.integers(0, 16, b.shape)
+    bd[b == I32_MAX] = 0
+    if plan_domain:
+        bd[bands > 0] = 0
+    comp = np.sort((b.astype(np.int64) << SDB) | bd, axis=1)
+    return (a, (comp >> SDB).astype(np.int32), (comp & SDM).astype(np.int32),
+            bands)
+
+
+def _ref_min_delta(ref, a, bk, bd, bands, impl):
+    jnp = ref["jnp"]
+    return np.asarray(ref["ops"].banded_min_delta_rows(
+        jnp.asarray(a), jnp.asarray(bk), jnp.asarray(bd), jnp.asarray(bands),
+        implementation=impl, interpret=True))
+
+
+@pytest.mark.parametrize("pa,pb", [(128, 128), (256, 1024), (1024, 256)])
+def test_min_delta_plain_matches_pallas(ref, pa, pb):
+    """The general minimum, band > 0 rows with non-zero deltas included."""
+    rng = np.random.default_rng(pa * 3 + pb)
+    a, bk, bd, bands = _scored_rows(rng, 6, pa, pb)
+    want = _ref_min_delta(ref, a, bk, bd, bands, "pallas")
+    got = ops.banded_min_delta_rows_plain(*map(torch.from_numpy,
+                                               (a, bk, bd, bands)))
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), want)
+    assert (got[1] == I32_MAX).all()                     # sentinel a row
+    assert ((want < I32_MAX) & (want > 0)).any()         # non-trivial minima
+    # the test exercises the general case: some band > 0 minimum differs
+    # from the two-probe answer
+    two_probe = _ref_min_delta(ref, a, bk, bd, bands, "ref")
+    assert not np.array_equal(two_probe, want)
+
+
+@pytest.mark.parametrize("pa,pb", [(128, 128), (256, 1024)])
+def test_min_delta_plain_matches_ref_on_plan_domain(ref, pa, pb):
+    """Where band > 0 rows carry zero deltas (plan construction), the
+    general minimum equals the reference's two-probe ref path too."""
+    rng = np.random.default_rng(pa + 5 * pb)
+    a, bk, bd, bands = _scored_rows(rng, 6, pa, pb, plan_domain=True)
+    got = ops.banded_min_delta_rows_plain(*map(torch.from_numpy,
+                                               (a, bk, bd, bands))).numpy()
+    assert np.array_equal(got, _ref_min_delta(ref, a, bk, bd, bands, "ref"))
+    assert np.array_equal(got, _ref_min_delta(ref, a, bk, bd, bands,
+                                              "pallas"))
+
+
+def test_min_delta_plain_edge_rows(ref):
+    """Hand-made rows: an empty b row, a duplicate run with mixed deltas
+    across the 128-block boundary, probes at the band edges, band 15."""
+    bk = np.full((3, 256), I32_MAX, np.int32)
+    bd = np.zeros((3, 256), np.int32)
+    keys = np.r_[np.arange(0, 120) * 40, np.full(20, 6000), 7000]
+    deltas = np.r_[np.zeros(120), np.arange(20)[::-1] % 16, 3]
+    comp = np.sort((keys.astype(np.int64) << SDB) | deltas.astype(np.int64))
+    bk[0, :141] = comp >> SDB
+    bd[0, :141] = comp & SDM
+    bk[2] = bk[0]
+    bd[2] = bd[0]
+    a = np.full((3, 128), I32_MAX, np.int32)
+    probes = [6000, 5999, 5985, 6015, 6016, 7000, 6993, 40, 55, I32_MAX]
+    a[:, :len(probes)] = probes
+    bands = np.array([15, 15, 0], np.int32)
+    want = _ref_min_delta(ref, a, bk, bd, bands, "pallas")
+    got = ops.banded_min_delta_rows_plain(*map(torch.from_numpy,
+                                               (a, bk, bd, bands))).numpy()
+    assert np.array_equal(got, want)
+    assert got[0, :len(probes)].tolist() == [
+        0, 1, 15, 15, I32_MAX, 3, 7 + 3, 0, 15, I32_MAX]
+    assert (got[1] == I32_MAX).all()                     # empty b row
+    assert got[2, :2].tolist() == [0, I32_MAX]           # band 0
+
+
+def _ref_delta_mask(ref, a, b, bands):
+    jnp = ref["jnp"]
+    return np.asarray(ref["ops"].banded_delta_mask_rows(
+        jnp.asarray(a), jnp.asarray(b), jnp.asarray(bands),
+        implementation="pallas", interpret=True))
+
+
+@pytest.mark.parametrize("pa,pb", [(128, 128), (256, 1024), (1024, 256)])
+def test_delta_mask_plain_matches_pallas(ref, pa, pb):
+    rng = np.random.default_rng(pa + 7 * pb)
+    a, b, _ = _rebased_rows(rng, 6, pa, pb)
+    bands = np.array([0, 15, 1, 8, 15, 3], np.int32)
+    want = _ref_delta_mask(ref, a, b, bands)
+    got = ops.banded_delta_mask_rows_plain(*map(torch.from_numpy,
+                                                (a, b, bands)))
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), want)
+    assert (got[1] == 0).all()                           # sentinel a row
+    assert (want[1:] >> 16 != 0).any()                   # high bits in use
+
+
+def test_delta_mask_plain_duplicates_straddling_blocks(ref):
+    b = np.full((1, 256), I32_MAX, np.int32)
+    b[0, :200] = np.sort(np.r_[np.arange(0, 120) * 10,
+                               np.full(80, 5000)]).astype(np.int32)
+    a = np.full((1, 128), I32_MAX, np.int32)
+    a[0, :6] = [5000, 4985, 5015, 5016, 1190, 1195]
+    bands = np.array([15], np.int32)
+    want = _ref_delta_mask(ref, a, b, bands)
+    got = ops.banded_delta_mask_rows_plain(*map(torch.from_numpy,
+                                                (a, b, bands))).numpy()
+    assert np.array_equal(got, want)
+    assert got[0, :6].tolist() == [1 << 15, 1 << 30, 1, 0,
+                                   (1 << 15) | (1 << 5),
+                                   (1 << 10) | (1 << 0)]
+
+
+def test_kword_window_hits_matches_reference(ref):
+    """The window scan and K-way combine over per-group masks, exactly;
+    inactive groups never constrain."""
+    jnp = ref["jnp"]
+    rng = np.random.default_rng(31)
+    G, N, pa = 3, 8, 128
+    bands = rng.integers(1, 16, N).astype(np.int32)
+    masks = np.zeros((G, N, pa), np.int32)
+    for g in range(G):
+        for n in range(N):
+            width = 2 * int(bands[n]) + 1
+            bits = rng.random((pa, width)) < 0.08
+            masks[g, n] = (bits * (1 << np.arange(width))).sum(axis=1)
+    active = rng.random((G, N)) < 0.8
+    active[:, 0] = False                                 # no active group
+    want = np.asarray(ref["ops"].kword_window_hits(
+        jnp.asarray(masks), jnp.asarray(active), jnp.asarray(bands)))
+    got = ops.kword_window_hits(*map(torch.from_numpy, (masks, active,
+                                                         bands)))
+    assert got.dtype == torch.bool
+    assert np.array_equal(got.numpy(), want)
+    assert want.any() and not want.all()
+    for g in range(G):
+        assert np.array_equal(
+            ops.delta_mask_t_bits(torch.from_numpy(masks[g]),
+                                  torch.from_numpy(bands)).numpy(),
+            np.asarray(ref["ops"].delta_mask_t_bits(jnp.asarray(masks[g]),
+                                                    jnp.asarray(bands))))
+
+
 def test_dispatch_takes_plain_version_on_cpu():
     """A CPU tensor takes the plain version; no build is attempted."""
     rng = np.random.default_rng(3)
@@ -210,6 +365,19 @@ def test_dispatch_takes_plain_version_on_cpu():
     assert torch.equal(ops.banded_intersect_rows(ta, tb, tbands),
                        ops.banded_intersect_rows_plain(ta, tb, tbands))
     assert ops.banded_intersect_rows_cuda.launches == launches
+
+
+def test_scoring_dispatch_takes_plain_version_on_cpu():
+    rng = np.random.default_rng(4)
+    a, bk, bd, bands = map(torch.from_numpy, _scored_rows(rng, 4, 128, 128))
+    counts = (ops.banded_min_delta_rows_cuda.launches,
+              ops.banded_delta_mask_rows_cuda.launches)
+    assert torch.equal(ops.banded_min_delta_rows(a, bk, bd, bands),
+                       ops.banded_min_delta_rows_plain(a, bk, bd, bands))
+    assert torch.equal(ops.banded_delta_mask_rows(a, bk, bands),
+                       ops.banded_delta_mask_rows_plain(a, bk, bands))
+    assert counts == (ops.banded_min_delta_rows_cuda.launches,
+                      ops.banded_delta_mask_rows_cuda.launches)
 
 
 # ---------------------------------------------------------------------------
@@ -236,5 +404,28 @@ def test_intersect_kernel_matches_plain_on_card(cuda_device, pa, pb):
                    for x in _rebased_rows(rng, 8, pa, pb))
     got = ops.banded_intersect_rows(a, b, bands)
     want = ops.banded_intersect_rows_plain(a, b, bands)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("pa,pb", [(128, 128), (1024, 32768)])
+def test_min_delta_kernel_matches_plain_on_card(cuda_device, pa, pb):
+    rng = np.random.default_rng(pa + 1)
+    a, bk, bd, bands = (torch.from_numpy(x).to(cuda_device)
+                        for x in _scored_rows(rng, 8, pa, pb))
+    got = ops.banded_min_delta_rows(a, bk, bd, bands)
+    want = ops.banded_min_delta_rows_plain(a, bk, bd, bands)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("pa,pb", [(128, 128), (1024, 32768)])
+def test_delta_mask_kernel_matches_plain_on_card(cuda_device, pa, pb):
+    rng = np.random.default_rng(pa + 2)
+    a, b, _ = _rebased_rows(rng, 8, pa, pb)
+    bands = np.array([0, 1, 8, 15, 15, 2, 5, 15], np.int32)
+    a, b, bands = (torch.from_numpy(x).to(cuda_device) for x in (a, b, bands))
+    got = ops.banded_delta_mask_rows(a, b, bands)
+    want = ops.banded_delta_mask_rows_plain(a, b, bands)
     torch.cuda.synchronize()
     assert torch.equal(got, want)

@@ -9,7 +9,8 @@
 * `index_from_reference` carries a reference index into the port
   unchanged.
 * The package imports neither jax nor `repro`, its engines refuse to fall
-  back from a missing card silently, and unported request kinds raise.
+  back from a missing card silently, and the ranked and K-word requests
+  the first slice refused answer as the reference's do.
 """
 import dataclasses
 import os
@@ -213,13 +214,27 @@ def test_engines_need_cuda_unless_cpu_is_asked(port_world, monkeypatch):
 
 
 @pytest.mark.parametrize("cls", [AdditionalIndexEngine, OrdinaryEngine])
-def test_unported_requests_raise(port_world, cls):
+def test_unported_requests_raise(small_world, port_world, cls):
+    """The request kinds the first slice refused (ranked, K-word) now
+    answer, on both entry points of both engines, exactly as the
+    reference engine does."""
+    from repro.core import SearchRequest as RefRequest
     eng = cls(port_world["index"], device="cpu")
+    ref = small_world["engine" if cls is AdditionalIndexEngine else "ordinary"]
     q = port_world["corpus"].doc(3)[5:9].tolist()
-    for req in (SearchRequest(q, rank=True),
-                SearchRequest(q, mode="near", rank=True, top_k=3),
-                SearchRequest(q, mode="kword", window=6)):
-        with pytest.raises(NotImplementedError):
-            eng.search(req)
-        with pytest.raises(NotImplementedError):
-            eng.search_batch([SearchRequest(q), req])
+    kinds = (dict(rank=True), dict(mode="near", rank=True, top_k=3),
+             dict(mode="kword", window=6))
+    for kw in kinds:
+        want = ref.search(RefRequest(q, **kw))
+        got = [eng.search(SearchRequest(q, **kw)),
+               eng.search_batch([SearchRequest(q), SearchRequest(q, **kw)])[1]]
+        for g in got:
+            for f in ("doc", "pos", "postings_read", "used_fallback",
+                      "doc_only", "subplan_types", "ranked", "anchor_scores",
+                      "doc_ids", "doc_scores"):
+                w, v = getattr(want, f), getattr(g, f)
+                if isinstance(w, np.ndarray):
+                    assert v.dtype == w.dtype and np.array_equal(v, w), (kw, f)
+                else:
+                    assert v == w, (kw, f)
+        assert len(got[0].doc) > 0, kw
