@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (src/repro_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--docs N] [--seed S]
+    python3 chip_smoke.py [--docs N] [--seed S] [--lm-arch A] [--lm-batch B]
+                          [--lm-prompt P] [--lm-steps T]
     python3 chip_smoke.py --ab PARENT . . PARENT     # see run_ab
 
 Phases, each reported on its own lines:
@@ -12,12 +13,11 @@ Phases, each reported on its own lines:
 2. index — a corpus of `--docs` documents (default lexicon, mean length
    800 words, seeded) and its additional + ordinary indexes, built on the
    host and moved to the card;
-3. kernels — each kernel against its plain PyTorch version on the card,
-   on seeded edge cases and on the largest inputs the main path gives it,
-   exact equality required (the unpack, banded-intersect, min-delta and
-   delta-mask kernels); times with CUDA events (L2 flushed before each
-   launch) beside the least time the card could take; one `kernels` JSON
-   line;
+3. kernels — each search kernel against its plain PyTorch version on the
+   card, on seeded edge cases and on the largest inputs the main path
+   gives it, exact equality required (the unpack, banded-intersect,
+   min-delta and delta-mask kernels); times with CUDA events (L2 flushed
+   before each launch) beside the least time the card could take;
 4. main path — the paper's query stream (phrase + every-other-word near
    queries of 3-5 words) in batches through `AdditionalIndexEngine(...,
    device="cuda").search_batch` and the `OrdinaryEngine` baseline, plus a
@@ -28,10 +28,35 @@ Phases, each reported on its own lines:
    ranked).  Every response is checked field by field (scores included)
    against the same engine on the CPU; the first 16 unranked ones and the
    first 8 of every new batch against the brute-force oracles; all four
-   kernels' launch counters must rise in this phase.
+   kernels' launch counters must rise in this phase;
+5. LM kernels — with the search phases' memory handed back, `--lm-arch`
+   (llama3-8b) at full width in bf16 with random weights from --seed; the
+   flash-decode and flash-prefill kernels against their plain versions on
+   seeded edge cases (kv_len 0, 1, S and odd; G 1, 4, 5, 8; D 32, 64, 128;
+   f32 to 2e-5, bf16 to 5e-2 and to one bf16 ulp of each output row's
+   largest value) and at the path's real shapes (decode over the
+   [B, 32768, 8, 128] cache at kv_len = the prompt, with random rows and
+   with needle rows at both ends; prefill on the prompt's first 4096
+   positions at batch 1), each check shown to refuse a zeroed output, a
+   decode that drops the last row or half the cache and a prefill whose
+   mask is one row late; timed beside their bound, plain version and
+   `scaled_dot_product_attention`; the flash prefill also at the served
+   prompt length beside the chunked attention, and the logits' head;
+6. LM main path — `forward_with_cache` on B x P prompt tokens (the chunked
+   attention branch), the k/v copied into a 32768-position cache,
+   `--lm-steps` greedy `decode_step`s through the flash-decode kernel
+   (every layer's attention output within one bf16 ulp of a row's scale
+   of the plain version on the same q and cache; exactly layers x steps
+   launches), the same steps teacher-forced through the plain version
+   (logits equal to 5e-2 at every step), and the flash-prefill kernel on
+   every layer's q, k, v of a prefill of the prompt's first 4096 positions
+   against that layer's own attention (four bf16 ulps of a row's scale;
+   one launch per layer); prefill tokens/s, decode ms per step, peak
+   memory.
 
-Any failed check exits non-zero.  The last line of standard output is
-`{"ok": true, "device": {...}}`.  Without a CUDA device, or without the
+Any failed check exits non-zero.  Before the last line it prints one
+`kernels` JSON line for all six kernels; the last line of standard output
+is `{"ok": true, "device": {...}}`.  Without a CUDA device, or without the
 repository's sources beside it, the script fails without a result.
 """
 from __future__ import annotations
@@ -41,6 +66,7 @@ import contextlib
 import gc
 import hashlib
 import json
+import math
 import multiprocessing
 import os
 import pickle
@@ -56,8 +82,22 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 INT_OPS_PER_S = 33.5e12        # 67 TFLOP/s f32 outside the tensor cores,
                                # counted per instruction (int32 runs at
                                # the f32 instruction rate)
+FLOPS_PER_S = {"torch.bfloat16": 989e12,   # tensor cores, dense
+               "torch.float32": 67e12}     # outside the tensor cores
 L2_FLUSH_BYTES = 256 << 20     # > the 50 MB L2: callers find the arena cold
 SEGMENT = "corpus reduced from the paper's ~130k docs by host build time"
+LM_CUT = ("decode_32k (configs/registry.py: seq 32768, batch 128) with the "
+          "batch cut to --lm-batch so that one card holds the bf16 cache; "
+          "full width, random weights from --seed")
+PREFILL_REAL_S = 4096          # the flash-prefill kernel's real-shape check:
+                               # the first positions of the prompt, batch 1
+ROW_ULP = 2.0 ** -7            # one bf16 ulp of a row's largest value: a
+                               # kernel against its plain version, both of
+                               # which round one float32 result
+MODEL_ULPS = 2.0 ** -5         # four: against the model's attention, which
+                               # rounds its probabilities to bf16 before the
+                               # product with v (one ulp from the plain
+                               # version on its own)
 
 
 class SmokeFailure(Exception):
@@ -311,9 +351,9 @@ def band_bound(torch, a, b, bands, out_bytes, delta_plane=False,
     return nbytes, ops
 
 
-def bound_ms(nbytes, ops):
+def bound_ms(nbytes, ops, ops_per_s=INT_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -389,31 +429,21 @@ class Recorder:
 # the smoke run
 # ---------------------------------------------------------------------------
 
+def phase_done(name, t_start):
+    say("phase", name=name, seconds=f"{time.perf_counter() - t_start:.1f}")
+    return time.perf_counter()
+
+
 def run(args) -> dict:
-    with contextlib.ExitStack() as stack:      # ends the oracle's workers
-        return _run(args, stack)
-
-
-def _run(args, stack) -> dict:
     import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         raise SmokeFailure("CUDA is not available: this smoke run needs an "
                            "NVIDIA GPU")
-    import repro_torch.core.batch_executor as bx
-    from repro_torch.core import (AdditionalIndexEngine, CorpusConfig,
-                                  LexiconConfig, OrdinaryEngine,
-                                  SearchRequest, build_all, generate_corpus,
-                                  make_lexicon_and_analyzer)
-    from repro_torch.core.postings import BLOCK, PACK_WIDTHS, PackedPostings
-    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import build
 
     t_run = time.perf_counter()
-
-    def phase_done(name, t_start):
-        say("phase", name=name, seconds=f"{time.perf_counter() - t_start:.1f}")
-        return time.perf_counter()
 
     # -- 1. device and build ------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -434,6 +464,31 @@ def _run(args, stack) -> dict:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 say("ptxas", source=name, info=json.dumps(line.strip()))
+
+    with contextlib.ExitStack() as stack:      # ends the oracle's workers
+        kernels = search_phases(args, stack, np, torch, t_phase)
+    # the search phases' index, engines and tensors are gone with their
+    # frame; hand their device memory back before the model is built
+    gc.unfreeze()
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels += lm_phases(args, np, torch)
+    say("phase", name="total", seconds=f"{time.perf_counter() - t_run:.1f}")
+    print(json.dumps({"kernels": kernels}), flush=True)
+    return {"platform": "gpu", "kind": device_kind,
+            "count": torch.cuda.device_count()}
+
+
+def search_phases(args, stack, np, torch, t_phase) -> list:
+    """Phases 2-4 (index, search kernels, search main path); returns the
+    four search kernels' entries of the `kernels` line."""
+    import repro_torch.core.batch_executor as bx
+    from repro_torch.core import (AdditionalIndexEngine, CorpusConfig,
+                                  LexiconConfig, OrdinaryEngine,
+                                  SearchRequest, build_all, generate_corpus,
+                                  make_lexicon_and_analyzer)
+    from repro_torch.core.postings import BLOCK, PACK_WIDTHS, PackedPostings
+    from repro_torch.kernels import ops
 
     # -- 2. index -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -764,10 +819,432 @@ def _run(args, stack) -> dict:
                         "max_abs_err": err[name], "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": b_ms,
                         "bound_by": b_by, "library_ms": None})
-    say("phase", name="total", seconds=f"{time.perf_counter() - t_run:.1f}")
-    print(json.dumps({"kernels": kernels}), flush=True)
-    return {"platform": "gpu", "kind": device_kind,
-            "count": torch.cuda.device_count()}
+    return kernels
+
+
+# ---------------------------------------------------------------------------
+# the LM serving path
+# ---------------------------------------------------------------------------
+
+def decode_bound(torch, q, k, kv_len):
+    """Least bytes and flops of a flash-decode call on these inputs: the k
+    and v rows below each kv_len read once, q read and out written; 4 D
+    flops per (query head, row)."""
+    B, Hq, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    rows = int(kv_len.clamp(0, S).sum())
+    nbytes = 2 * rows * Hkv * D * k.element_size() + 2 * q.numel() * q.element_size()
+    return nbytes, 4 * rows * Hq * D
+
+
+def prefill_bound(q, k):
+    """Least bytes and flops of a causal prefill call: q, k, v read and out
+    written once; 4 D flops per (query head, q, kv <= q) pair."""
+    B, S, Hq, D = q.shape
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    return nbytes, 4 * B * Hq * D * S * (S + 1) // 2
+
+
+def attention_cases(np, torch, rng):
+    """Seeded edge cases of the two attention kernels: (kind, inputs)."""
+    def make(shapes, dtype):
+        return [torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                .to(device="cuda", dtype=dtype) for s in shapes]
+    f32, bf16 = torch.float32, torch.bfloat16
+    decode = []
+    for B, Hq, Hkv, D, S, kv_len, dt in [
+            (2, 4, 4, 32, 96, [1, 96], f32),                 # G = 1
+            (3, 8, 2, 64, 1000, [0, 999, 517], f32),         # kv_len 0, odd
+            (2, 5, 1, 128, 777, [777, 5000], f32),           # G = 5, > S
+            (4, 16, 4, 64, 2048, [1, 2048, 1023, 0], bf16),  # G = 4
+            (2, 5, 1, 32, 333, [333, 2], bf16),
+            (2, 8, 1, 128, 4096, [4095, 3], bf16)]:          # G = 8
+        q, k, v = make([(B, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D)], dt)
+        decode.append((q, k, v, torch.tensor(kv_len, dtype=torch.int32,
+                                             device="cuda")))
+    prefill = [make([(B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D)], dt)
+               for B, S, Hq, Hkv, D, dt in [
+                   (1, 128, 4, 1, 32, f32), (2, 200, 8, 2, 64, f32),
+                   (1, 77, 5, 1, 128, f32), (1, 300, 12, 3, 64, bf16),
+                   (2, 64, 4, 4, 128, bf16), (1, 1000, 8, 1, 32, bf16)]]
+    return decode, prefill
+
+
+def tol_of(torch, x):
+    return 2e-5 if x.dtype == torch.float32 else 5e-2
+
+
+def max_err(torch, got, want):
+    return float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
+
+
+def row_rel_err(torch, got, want):
+    """The error in units of each output row's scale: the largest over rows
+    (the last axis) of max|got - want| / max|want|.  A zeroed output reads
+    1; a row of zeros in `want` must be matched exactly (inf otherwise)."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs().amax(-1)
+    scale = w.abs().amax(-1)
+    r = torch.where(scale > 0, err / scale.clamp_min(1e-30),
+                    torch.where(err > 0, torch.full_like(err, float("inf")),
+                                torch.zeros_like(err)))
+    return float(r.max()) if r.numel() else 0.0
+
+
+def hold(torch, what, got, want, rel_limit=ROW_ULP):
+    """Check `got` against `want`: the absolute tolerance of its dtype and,
+    in bf16, `rel_limit` of each row's scale (`row_rel_err`), which a
+    near-flat softmax's small outputs cannot hide.  Returns (abs, rel)."""
+    e = max_err(torch, got, want)
+    check(e < tol_of(torch, got), f"{what}: max abs err {e}")
+    r = row_rel_err(torch, got, want)
+    check(got.dtype == torch.float32 or r <= rel_limit,
+          f"{what}: err {r} of a row's scale > {rel_limit}")
+    return e, r
+
+
+def control(torch, what, got, want, rel_limit):
+    """A deliberately wrong output that the check must refuse."""
+    r = row_rel_err(torch, got, want)
+    check(r > rel_limit, f"control {what} passes the check ({r} <= "
+                         f"{rel_limit}): the check cannot see it")
+    return r
+
+
+@contextlib.contextmanager
+def recording(module, name, calls):
+    """Within the block, `module.name` appends (args, result) of every call
+    to `calls`: the model's own inputs and outputs of that function."""
+    fn = getattr(module, name)
+
+    def rec(*args, **kw):
+        out = fn(*args, **kw)
+        calls.append((args, out))
+        return out
+    setattr(module, name, rec)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def needle_cache(torch, q, k, v, kv_len):
+    """Copies of k, v where rows 0 and kv_len - 1 of every (b, kv head)
+    draw about a third of the softmax each: k there points along the
+    group's summed q, scaled so that the mean score is ln(kv_len) + 1/2,
+    about the log of what the other rows (N(0, 1) scores) sum to.  Their v
+    stay O(1), so a kernel that drops either end row, or the rows between,
+    moves the output by a large share of its scale."""
+    B, Hq, D = q.shape
+    Hkv = k.shape[2]
+    qg = q.float().reshape(B, Hkv, Hq // Hkv, D)
+    u = qg.sum(2)
+    u = u / u.norm(dim=-1, keepdim=True)                     # [B, Hkv, D]
+    proj = (qg * u[:, :, None]).sum(-1).mean(-1)             # [B, Hkv]
+    nk = k.clone()
+    for b in range(B):
+        n = int(kv_len[b])
+        c = (math.log(n) + 0.5) * D ** 0.5 / proj[b]
+        for r in (0, n - 1):
+            nk[b, r] = (c[:, None] * u[b]).to(k.dtype)
+    return nk, v.clone()
+
+
+def lm_phases(args, np, torch) -> list:
+    """Phases 5-6: the LM serving path of `--lm-arch` at full width (bf16,
+    random weights from --seed).  The two attention kernels against their
+    plain versions (seeded edge cases; decode at the cache's real shape,
+    flat and with needle rows; prefill on the first PREFILL_REAL_S
+    positions of the real prompt at batch 1), each check shown to refuse a
+    wrong output; then the main path: a prefill of the prompt through
+    `forward_with_cache`, `--lm-steps` greedy `decode_step`s through the
+    flash-decode kernel (each layer's attention output held against the
+    plain version on the same q and cache), the same steps teacher-forced
+    through the plain version, and the flash-prefill kernel held against
+    the model's own attention in every layer of a prefill of the prompt's
+    first PREFILL_REAL_S positions.  Returns the two kernels' entries of
+    the `kernels` line."""
+    import torch.nn.functional as F
+    from repro_torch.configs.registry import LM_SHAPES, get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import forward_with_cache
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as tfm
+
+    t_phase = time.perf_counter()
+    cfg = get_arch(args.lm_arch).make_config()
+    check(cfg.dtype == torch.bfloat16, f"{args.lm_arch} is not bf16")
+    B, P, T = args.lm_batch, args.lm_prompt, args.lm_steps
+    s_max = LM_SHAPES["decode_32k"]["seq_len"]
+    check(P + T <= s_max, f"prompt {P} + steps {T} > cache {s_max}")
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    model = tfm.init_params(cfg, gen, "cuda")
+    prompt = torch.randint(0, cfg.vocab, (B, P), generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    cache_bytes = (2 * cfg.n_layers * B * s_max * cfg.n_kv_heads * cfg.hd
+                   * torch.finfo(cfg.dtype).bits // 8)
+    say("lm_model", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+        heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+        d_ff=cfg.d_ff, vocab=cfg.vocab, dtype=str(cfg.dtype).split(".")[-1],
+        params=cfg.param_count(), weight_bytes=weight_bytes,
+        cache_bytes=cache_bytes, batch=B, prompt=P, steps=T, cache_len=s_max,
+        prefill_chunks=cfg.attn_chunk.for_seq(P))
+    say("lm_model", cut=json.dumps(LM_CUT))
+    t_phase = phase_done("lm_init", t_phase)
+
+    # -- 5. the attention kernels against their plain versions ---------------
+    rng = np.random.default_rng(args.seed)
+    decode_cases, prefill_cases = attention_cases(np, torch, rng)
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    dq = torch.randn((B, hq, hd), generator=gen, device="cuda").to(cfg.dtype)
+    dk, dv = (torch.randn((B, s_max, hkv, hd), generator=gen, device="cuda")
+              .to(cfg.dtype) for _ in range(2))
+    d_len = torch.full((B,), P, dtype=torch.int32, device="cuda")
+    nk, nv = needle_cache(torch, dq, dk, dv, d_len)
+    s0 = min(PREFILL_REAL_S, P)
+    with torch.no_grad():
+        x0 = model.embed[prompt[:1, :s0]]
+        pos0 = torch.arange(s0, dtype=torch.int32, device="cuda")[None]
+        pq, pk, pv = model.layers[0].qkv(x0, pos0)
+    del x0
+    err = {"flash_decode": 0.0, "flash_prefill": 0.0}
+    rel = {"flash_decode": 0.0, "flash_prefill": 0.0}
+
+    def held(name, what, got, want):
+        e, r = hold(torch, f"{name} != plain {what}", got, want)
+        err[name], rel[name] = max(err[name], e), max(rel[name], r)
+
+    for q, k, v, kv_len in decode_cases + [(dq, dk, dv, d_len),
+                                           (dq, nk, nv, d_len)]:
+        held("flash_decode", f"at q{tuple(q.shape)} k{tuple(k.shape)} "
+             f"{q.dtype} kv_len {kv_len.tolist()}",
+             ops.flash_decode(q, k, v, kv_len),
+             ops.flash_decode_plain(q, k, v, kv_len))
+    for q, k, v in prefill_cases + [(pq, pk, pv)]:
+        held("flash_prefill", f"at q{tuple(q.shape)} k{tuple(k.shape)} "
+             f"{q.dtype}", ops.flash_prefill(q, k, v),
+             ops.flash_prefill_plain(q, k, v))
+    # controls: the real-shape checks refuse a zeroed output, a decode
+    # that drops the last cache row (needles) or half of it (flat), and a
+    # prefill whose causal mask is off by one row
+    want_flat = ops.flash_decode_plain(dq, dk, dv, d_len)
+    want_needle = ops.flash_decode_plain(dq, nk, nv, d_len)
+    want_pre = ops.flash_prefill_plain(pq, pk, pv)
+    shifted = [torch.cat([t[:, :1], t[:, :-1]], dim=1) for t in (pk, pv)]
+    controls = {
+        "decode_zero": control(torch, "zeroed decode", torch.zeros_like(
+            want_flat), want_flat, ROW_ULP),
+        "decode_half_cache": control(torch, "decode of half the cache",
+                                     ops.flash_decode(dq, dk, dv, d_len // 2),
+                                     want_flat, ROW_ULP),
+        "decode_kv_len_minus_1": control(
+            torch, "decode at kv_len - 1",
+            ops.flash_decode(dq, nk, nv, d_len - 1), want_needle, ROW_ULP),
+        "prefill_zero": control(torch, "zeroed prefill",
+                                torch.zeros_like(want_pre), want_pre, ROW_ULP),
+        "prefill_mask_off_by_one": control(
+            torch, "prefill with the mask one row late",
+            ops.flash_prefill(pq, *shifted), want_pre, ROW_ULP)}
+    del decode_cases, prefill_cases, want_flat, want_needle, want_pre, shifted
+    del nk, nv
+    say("lm_kernel_check", flash_decode_max_abs_err=f"{err['flash_decode']:.4g}",
+        flash_decode_row_rel_err=f"{rel['flash_decode']:.4g}",
+        flash_prefill_max_abs_err=f"{err['flash_prefill']:.4g}",
+        flash_prefill_row_rel_err=f"{rel['flash_prefill']:.4g}",
+        limit=ROW_ULP, controls=json.dumps(
+            {k: round(v, 4) for k, v in controls.items()}))
+
+    def sdpa_decode():
+        mask = (torch.arange(s_max, device="cuda")[None] < d_len[:, None])
+        return F.scaled_dot_product_attention(
+            dq[:, :, None], dk.transpose(1, 2), dv.transpose(1, 2),
+            attn_mask=mask[:, None, None], enable_gqa=True)[:, :, 0]
+
+    def sdpa_prefill():
+        return F.scaled_dot_product_attention(
+            pq.transpose(1, 2), pk.transpose(1, 2), pv.transpose(1, 2),
+            is_causal=True, enable_gqa=True).transpose(1, 2)
+
+    lib_err = {"flash_decode": max_err(torch, sdpa_decode(),
+                                       ops.flash_decode_plain(dq, dk, dv, d_len)),
+               "flash_prefill": max_err(torch, sdpa_prefill(),
+                                        ops.flash_prefill_plain(pq, pk, pv))}
+    rate = FLOPS_PER_S[str(cfg.dtype)]
+    timing = {
+        "flash_decode": (
+            time_cuda_ms(torch, lambda: ops.flash_decode(dq, dk, dv, d_len)),
+            time_cuda_ms(torch, lambda: ops.flash_decode_plain(dq, dk, dv, d_len)),
+            bound_ms(*decode_bound(torch, dq, dk, d_len), rate),
+            time_cuda_ms(torch, sdpa_decode)),
+        "flash_prefill": (
+            time_cuda_ms(torch, lambda: ops.flash_prefill(pq, pk, pv)),
+            time_cuda_ms(torch, lambda: ops.flash_prefill_plain(pq, pk, pv)),
+            bound_ms(*prefill_bound(pq, pk), rate),
+            time_cuda_ms(torch, sdpa_prefill))}
+    say("lm_kernel_shapes",
+        flash_decode=f"q{tuple(dq.shape)}k{tuple(dk.shape)}kv_len{P}",
+        flash_prefill=f"q{tuple(pq.shape)}k{tuple(pk.shape)}",
+        sdpa_vs_plain=json.dumps(lib_err))
+    del dq, dk, dv, pq, pk, pv
+    torch.cuda.empty_cache()
+
+    # the flash-prefill kernel at the served prompt length (batch 1, layer
+    # 0) beside the chunked attention the prefill runs there; and the
+    # logits' head, which turns the bf16 lm_head into float32 every call
+    with torch.no_grad():
+        pos = torch.arange(P, dtype=torch.int32, device="cuda")[None]
+        sq, sk, sv = model.layers[0].qkv(model.embed[prompt[:1]], pos)
+        cq, ckv = cfg.attn_chunk.for_seq(P)
+        s_want = L.causal_attention(sq, sk, sv, chunk_q=cq, chunk_kv=ckv)
+        _, s_rel = hold(torch, "flash_prefill != causal_attention at the "
+                        "served length", ops.flash_prefill(sq, sk, sv), s_want,
+                        MODEL_ULPS)
+        served_ms = time_cuda_ms(torch, lambda: ops.flash_prefill(sq, sk, sv),
+                                 iters=2)
+        chunked_ms = time_cuda_ms(torch, lambda: L.causal_attention(
+            sq, sk, sv, chunk_q=cq, chunk_kv=ckv), iters=2)
+        del sq, sk, sv, s_want
+        xh = model.embed[prompt[:, -1]]
+        head = model.embed.T if cfg.tie_embeddings else model.lm_head
+        logits_ms = time_cuda_ms(torch, lambda: model.logits(xh))
+        head_cast_ms = time_cuda_ms(torch, lambda: head.float())
+    say("lm_prefill_at_served_len", shape=f"q[1,{P},{hq},{hd}]",
+        flash_prefill_ms=f"{served_ms:.3f}",
+        chunked_causal_attention_ms=f"{chunked_ms:.3f}",
+        row_rel_err=f"{s_rel:.4g}", limit=MODEL_ULPS)
+    say("lm_head", batch=B, logits_ms=f"{logits_ms:.4f}",
+        head_to_float32_ms=f"{head_cast_ms:.4f}")
+    torch.cuda.empty_cache()
+    t_phase = phase_done("lm_kernels", t_phase)
+
+    # -- 6. main path: prefill, greedy decode, plain decode, prefill check ---
+    counters = {"flash_decode": ops.flash_decode_cuda,
+                "flash_prefill": ops.flash_prefill_cuda}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    logits0, pcache = forward_with_cache(model, prompt)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_peak = torch.cuda.max_memory_allocated()
+    cache = tfm.init_cache(cfg, B, s_max, device="cuda")
+    for f in ("k", "v"):
+        cache[f][:, :, :P].copy_(pcache[f])
+    del pcache
+    torch.cuda.empty_cache()
+
+    def decode(impl, feed):
+        logits, fed, step_s = [], [], []
+        tok = torch.argmax(logits0[:, :cfg.vocab], dim=-1)
+        for t in range(T):
+            tok = tok if feed is None else feed[t]
+            fed.append(tok)
+            t1 = time.perf_counter()
+            lg, _ = tfm.decode_step(model, cache, tok, P + t, attn_impl=impl)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t1)
+            logits.append(lg)
+            tok = torch.argmax(lg[:, :cfg.vocab], dim=-1)
+        return torch.stack(logits), fed, step_s
+
+    with recording(ops, "flash_decode", []) as dec_calls:
+        flash_logits, fed, flash_s = decode("flash", None)
+    flash_launches = ops.flash_decode_cuda.launches
+    # each layer's attention output of the flash pass against the plain
+    # version on the same q and cache: later steps write only later slots,
+    # so the cache still holds what every call read
+    dec_rel = 0.0
+    for (q, ck, cv, kv_len), o in dec_calls:
+        dec_rel = max(dec_rel, row_rel_err(
+            torch, o, ops.flash_decode_plain(q, ck, cv, kv_len)))
+    last = dec_calls[-cfg.n_layers:]
+    path_controls = {
+        "decode_zero": max(control(
+            torch, "zeroed attention", torch.zeros_like(o), o, ROW_ULP)
+            for _, o in last),
+        "decode_half_cache": min(control(
+            torch, "attention over half the cache",
+            ops.flash_decode_plain(q, ck, cv, kv_len // 2), o, ROW_ULP)
+            for (q, ck, cv, kv_len), o in last)}
+    del dec_calls, last
+    plain_logits, _, plain_s = decode("xla", fed)
+
+    # the flash-prefill kernel against the model's own attention, layer by
+    # layer, in a prefill of the prompt's first PREFILL_REAL_S positions
+    with recording(L, "causal_attention", []) as pre_calls:
+        px_logits, _ = forward_with_cache(model, prompt[:1, :s0])
+    pre_rel = 0.0
+    for (q, k, v), o in pre_calls:
+        pre_rel = max(pre_rel, row_rel_err(torch, ops.flash_prefill(q, k, v), o))
+    (q, k, v), o = pre_calls[0]
+    shifted = [torch.cat([t[:, :1], t[:, :-1]], dim=1) for t in (k, v)]
+    path_controls["prefill_zero"] = control(
+        torch, "zeroed prefill attention", torch.zeros_like(o), o, MODEL_ULPS)
+    path_controls["prefill_mask_off_by_one"] = control(
+        torch, "prefill attention with the mask one row late",
+        ops.flash_prefill_plain(q, *shifted), o, MODEL_ULPS)
+    del pre_calls, q, k, v, o, shifted
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    t_phase = phase_done("lm_main_path", t_phase)
+
+    logit_err = max_err(torch, flash_logits, plain_logits)
+    agree = int((flash_logits[..., :cfg.vocab].argmax(-1)
+                 == plain_logits[..., :cfg.vocab].argmax(-1)).sum())
+    finite = all(bool(torch.isfinite(x).all()) for x in
+                 (logits0, flash_logits, plain_logits, px_logits))
+    step_err = (flash_logits - plain_logits).abs().flatten(1).amax(1)
+    say("lm_check_steps", logits_std=f"{float(plain_logits.std()):.4g}",
+        diff_std=f"{float((flash_logits - plain_logits).std()):.4g}",
+        decode_logits_max_abs_err_per_step=",".join(
+            f"{e:.3g}" for e in step_err.tolist()))
+    say("lm_check", decode_attention_row_rel_err=f"{dec_rel:.4g}",
+        decode_limit=ROW_ULP, prefill_attention_row_rel_err=f"{pre_rel:.4g}",
+        prefill_limit=MODEL_ULPS, controls=json.dumps(
+            {k: round(v, 4) for k, v in path_controls.items()}),
+        decode_logits_max_abs_err=f"{logit_err:.4g}",
+        argmax_agree=f"{agree}/{B * T}", finite=finite,
+        flash_decode_launches_in_flash_pass=flash_launches, **launches)
+    check(finite, "non-finite logits")
+    check(dec_rel <= ROW_ULP, f"flash decode on the main path differs from "
+          f"its plain version by {dec_rel} of a row's scale")
+    check(pre_rel <= MODEL_ULPS, f"flash prefill differs from the model's "
+          f"attention by {pre_rel} of a row's scale")
+    check(logit_err < 5e-2, f"flash and plain decode logits differ by "
+          f"{logit_err}")
+    check(flash_launches == cfg.n_layers * T
+          and launches["flash_decode"] == cfg.n_layers * T,
+          f"flash_decode launched {flash_launches} times in the flash pass, "
+          f"{launches['flash_decode']} in all; want {cfg.n_layers * T}")
+    check(launches["flash_prefill"] == cfg.n_layers,
+          f"flash_prefill launched {launches['flash_prefill']} times; want "
+          f"{cfg.n_layers}")
+    say("lm_memory", weight_bytes=weight_bytes, cache_bytes=cache_bytes,
+        prefill_peak_bytes=prefill_peak,
+        max_memory_allocated=torch.cuda.max_memory_allocated())
+    say("lm_prefill", tokens=B * P, seconds=f"{prefill_s:.3f}",
+        tokens_per_s=f"{B * P / prefill_s:.1f}")
+    for impl, step_s in (("flash", flash_s), ("xla", plain_s)):
+        say("lm_decode", attn=impl, steps=T, batch=B,
+            step_p50_ms=f"{percentile(step_s, 50) * 1e3:.3f}",
+            step_p99_ms=f"{percentile(step_s, 99) * 1e3:.3f}",
+            tokens_per_s=f"{B * T / sum(step_s):.1f}")
+
+    replaces = {"flash_decode": "src/repro/kernels/flash_decode.py:67",
+                "flash_prefill": "src/repro/kernels/flash_prefill.py:70"}
+    kernels = []
+    for name in ("flash_decode", "flash_prefill"):
+        ms, plain_ms, (b_ms, b_by), lib_ms = timing[name]
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                        "replaces": replaces[name],
+                        "launches": launches[name],
+                        "max_abs_err": err[name], "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": b_ms,
+                        "bound_by": b_by, "library_ms": lib_ms})
+    return kernels
 
 
 # ---------------------------------------------------------------------------
@@ -909,6 +1386,14 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batches", type=int, default=8)
     ap.add_argument("--batch-size", type=int, default=64)
+    ap.add_argument("--lm-arch", default="llama3-8b",
+                    help="LM of the serving phase, at full width")
+    ap.add_argument("--lm-batch", type=int, default=4)
+    ap.add_argument("--lm-prompt", type=int, default=31744,
+                    help="prompt tokens per row (a multiple of 1024 above "
+                         "8192 runs the chunked prefill)")
+    ap.add_argument("--lm-steps", type=int, default=32,
+                    help="greedy decode steps after the prefill")
     ap.add_argument("--ab", nargs="+", metavar="TREE",
                     help="A/B the unranked main path of these checkouts "
                          "(run order, e.g. PARENT . . PARENT) instead of "

@@ -1,4 +1,5 @@
-"""Carry an index built by the reference package into the port.
+"""Carry an index, or LM weights, built by the reference package into the
+port.
 
 `index_from_reference(ref_index)` turns a reference `IndexSet` into the
 port's own `IndexSet` — the port's "weights carried across".  It copies,
@@ -8,12 +9,17 @@ packed `lanes` / block metadata of every stream.  It reads attributes only
 (duck typing on the class name), so it imports nothing of the reference
 package; an engine over a carried index answers exactly like one over an
 index the port built itself.
+
+`lm_params_from_reference(params, cfg, device)` does the same for a
+reference LM parameter dict (numpy arrays, layers stacked [L, ...]): it
+returns the port's `Transformer` with each array cast to `cfg.dtype`.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.core.analyzer import Analyzer
 from repro_torch.core.basic_index import BasicIndex
@@ -23,6 +29,7 @@ from repro_torch.core.lexicon import Lexicon, LexiconConfig
 from repro_torch.core.multi_key_index import MultiKeyIndex
 from repro_torch.core.postings import CSR, DenseCSR, PackedPostings
 from repro_torch.core.stop_phrase_index import StopPhraseIndex
+from repro_torch.models.transformer import Transformer, TransformerConfig
 
 # the reference's index classes, by name, and their port counterparts
 PORT_CLASSES = {cls.__name__: cls for cls in (
@@ -60,3 +67,37 @@ def index_from_reference(ref_index) -> IndexSet:
     if type(ref_index).__name__ != "IndexSet":
         raise TypeError(f"expected an IndexSet, got {type(ref_index)}")
     return _carry(ref_index)
+
+
+@torch.no_grad()
+def lm_params_from_reference(params: dict, cfg: TransformerConfig,
+                             device=None) -> Transformer:
+    """The port's model holding the reference LM parameters `params`
+    (`embed`, `final_norm`, `lm_head` unless tied, and `layers`: a dict of
+    arrays stacked [L, ...]), each cast to `cfg.dtype`, on `device` (the
+    card unless the caller asks for the CPU).  Reads arrays only."""
+    model = Transformer(cfg, device)
+    want = {name for name, _ in model.layers[0].named_parameters()}
+    if set(params["layers"]) != want:
+        raise ValueError(f"layer parameters {sorted(params['layers'])}, "
+                         f"want {sorted(want)} (a dense model)")
+
+    def put(dst: torch.Tensor, arr, what: str):
+        src = torch.from_numpy(np.array(arr, dtype=np.float32))
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"{what}: shape {tuple(src.shape)}, want "
+                             f"{tuple(dst.shape)}")
+        dst.copy_(src.to(cfg.dtype))
+
+    for name in want:
+        stacked = np.asarray(params["layers"][name])
+        if stacked.shape[0] != cfg.n_layers:
+            raise ValueError(f"layers.{name}: {stacked.shape[0]} layers, "
+                             f"want {cfg.n_layers}")
+        for i, layer in enumerate(model.layers):
+            put(getattr(layer, name), stacked[i], f"layers.{name}[{i}]")
+    put(model.embed, params["embed"], "embed")
+    put(model.final_norm, params["final_norm"], "final_norm")
+    if not cfg.tie_embeddings:
+        put(model.lm_head, params["lm_head"], "lm_head")
+    return model

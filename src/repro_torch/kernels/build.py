@@ -26,7 +26,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-SOURCES = ("unpack", "intersect", "min_delta", "delta_mask")
+SOURCES = ("unpack", "intersect", "min_delta", "delta_mask",
+           "flash_decode", "flash_prefill")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -42,6 +43,11 @@ SIGNATURES = {
                   (_VP, _VP, _VP, _VP, _LL, _LL, _LL, _VP, _VP)),
     "delta_mask": ("banded_delta_mask_rows_launch",
                    (_VP, _VP, _VP, _LL, _LL, _LL, _VP, _VP)),
+    "flash_decode": ("flash_decode_launch",
+                     (_VP, _VP, _VP, _VP, _VP, _LL, _LL, _LL, _LL, _LL, _LL,
+                      _VP)),
+    "flash_prefill": ("flash_prefill_launch",
+                      (_VP, _VP, _VP, _VP, _LL, _LL, _LL, _LL, _LL, _LL, _VP)),
 }
 
 

@@ -1,0 +1,44 @@
+"""CUDA wrapper of the flash-prefill attention kernel (csrc/flash_prefill.cu).
+
+Replaces src/repro/kernels/flash_prefill.py::flash_prefill_pallas: causal
+GQA attention over a prompt, kv tiles above the diagonal skipped, online
+softmax with float32 state.  It takes q in the model's [B, S, Hq, D]
+layout (the reference reorders q into (q block, g, q) rows for the TPU).
+One CTA per 64-row q tile of one query head; its bound is arithmetic; see
+the source note in csrc/flash_prefill.cu.  The plain PyTorch version of
+the same function is `ops.flash_prefill_plain`.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.flash_decode import DTYPE_CODES, check_attention_inputs
+
+
+def flash_prefill_cuda(q: torch.Tensor, k: torch.Tensor,
+                       v: torch.Tensor) -> torch.Tensor:
+    """q [B, S, Hq, D]; k, v [B, S, Hkv, D] -> [B, S, Hq, D] in q's dtype,
+    on the card.  D in {32, 64, 128}, float32 or bfloat16.  Adds one to
+    `flash_prefill_cuda.launches` per launch."""
+    if q.dim() != 4:
+        raise ValueError(f"flash_prefill: q {tuple(q.shape)}: want "
+                         f"[B, S, Hq, D]")
+    check_attention_inputs("flash_prefill", q, k, v, q.shape[2])
+    B, S, Hq, D = q.shape
+    if k.shape[:2] != (B, S):
+        raise ValueError(f"flash_prefill: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}: want the same B and S")
+    out = torch.empty_like(q)
+    if B == 0 or S == 0 or Hq == 0:
+        return out
+    fn = build.load("flash_prefill")
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
+             Hq, k.shape[2], D, DTYPE_CODES[q.dtype],
+             torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "flash_prefill")
+    flash_prefill_cuda.launches += 1
+    return out
+
+
+flash_prefill_cuda.launches = 0

@@ -1,7 +1,8 @@
 """Kernel dispatch and the plain PyTorch versions of the kernels.
 
 Each op dispatches on the device of its tensors: a CUDA tensor launches the
-hand-written kernel (unpack.py, intersect.py; sources in csrc/) or raises,
+hand-written kernel (unpack.py, intersect.py, flash_decode.py,
+flash_prefill.py; sources in csrc/) or raises,
 a CPU tensor takes the plain version below.  The plain versions are pure
 tensor code that runs on either device; the CPU tests hold them against the
 reference package, and chip_smoke.py holds the kernels against them on the
@@ -11,8 +12,12 @@ kernel in the reference.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
+from repro_torch.kernels.flash_decode import flash_decode_cuda
+from repro_torch.kernels.flash_prefill import flash_prefill_cuda
 from repro_torch.kernels.intersect import (banded_delta_mask_rows_cuda,
                                            banded_intersect_rows_cuda,
                                            banded_min_delta_rows_cuda)
@@ -228,3 +233,76 @@ def kword_window_hits(masks: torch.Tensor, active: torch.Tensor,
                            delta_mask_t_bits(masks[g], bands), -1)
         t_ok = bits if t_ok is None else (t_ok & bits)
     return t_ok != 0
+
+
+# ---------------------------------------------------------------------------
+# flash prefill attention
+# ---------------------------------------------------------------------------
+
+def flash_prefill_plain(q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor) -> torch.Tensor:
+    """Causal GQA prefill attention, the reference's `ref.flash_prefill_ref`:
+    q [B, S, Hq, D]; k, v [B, S, Hkv, D]; head = h * G + g; float32
+    softmax; output in q's dtype."""
+    B, S, Hq, D = q.shape
+    G = Hq // k.shape[2]
+    kk = torch.repeat_interleave(k, G, dim=2).float()
+    vv = torch.repeat_interleave(v, G, dim=2).float()
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk) / math.sqrt(D)
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    logits = logits.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vv).to(q.dtype)
+
+
+def flash_prefill(q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor) -> torch.Tensor:
+    """Causal GQA prefill attention, q [B, S, Hq, D], k, v [B, S, Hkv, D] —
+    the CUDA kernel on the card, the plain version on the CPU."""
+    if _on_cpu(q, "flash_prefill"):
+        return flash_prefill_plain(q, k, v)
+    return flash_prefill_cuda(q, k, v)
+
+
+# ---------------------------------------------------------------------------
+# flash decode attention
+# ---------------------------------------------------------------------------
+
+def _kv_len_rows(kv_len, batch: int, device) -> torch.Tensor:
+    """kv_len as int32 [batch] on `device` (a scalar is broadcast)."""
+    kv_len = torch.as_tensor(kv_len, dtype=torch.int32, device=device)
+    if kv_len.dim() == 0:
+        kv_len = kv_len.expand(batch)
+    return kv_len.contiguous()
+
+
+def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       kv_len) -> torch.Tensor:
+    """One-token GQA decode attention, the reference's `ref.flash_decode_ref`:
+    q [B, Hq, D]; k, v [B, S, Hkv, D]; kv_len [B] or scalar valid cache
+    rows (more than S reads all S).  Float32 softmax; output in q's dtype.
+    A row with kv_len <= 0 gives zeros, as the reference's Pallas kernel
+    does (`ref.flash_decode_ref` gives NaN there)."""
+    B, Hq, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    kv_len = _kv_len_rows(kv_len, B, q.device)
+    qf = q.float().reshape(B, Hkv, G, D)
+    logits = torch.einsum("bhgd,bshd->bhgs", qf, k.float()) / math.sqrt(D)
+    mask = torch.arange(S, device=q.device)[None, :] < kv_len[:, None]
+    logits = logits.masked_fill(~mask[:, None, None, :], float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", p, v.float())
+    out = torch.where((kv_len > 0)[:, None, None, None], out, 0.0)
+    return out.reshape(B, Hq, D).to(q.dtype)
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 kv_len) -> torch.Tensor:
+    """One-token GQA decode attention, q [B, Hq, D], k, v [B, S, Hkv, D],
+    kv_len [B] or scalar — the CUDA kernel on the card, the plain version
+    on the CPU."""
+    if _on_cpu(q, "flash_decode"):
+        return flash_decode_plain(q, k, v, kv_len)
+    return flash_decode_cuda(q, k, v, _kv_len_rows(kv_len, q.shape[0],
+                                                   q.device))

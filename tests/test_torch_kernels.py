@@ -2,9 +2,11 @@
 
 The port's plain versions (repro_torch.kernels.ops.*_plain, which the CPU
 path runs) must equal the reference's Pallas path in interpret mode
-exactly — both are integer functions.  The CUDA kernels themselves run only
-on a card: their tests take the `cuda_device` fixture, which skips without
-one, and hold each kernel against its plain version on the card.
+exactly — both are integer functions (tests/test_torch_lm.py does the same
+for the two attention kernels' plain versions).  The CUDA kernels
+themselves run only on a card: their tests take the `cuda_device` fixture,
+which skips without one, and hold each kernel against its plain version on
+the card (the attention kernels to 2e-5 in float32 and 5e-2 in bf16).
 """
 import numpy as np
 import pytest
@@ -429,3 +431,65 @@ def test_delta_mask_kernel_matches_plain_on_card(cuda_device, pa, pb):
     want = ops.banded_delta_mask_rows_plain(a, b, bands)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def _attention_inputs(rng, shapes, dtype, device):
+    return [torch.from_numpy(rng.normal(size=s).astype(np.float32))
+            .to(device=device, dtype=dtype) for s in shapes]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,D,S,kv_len,dtype", [
+    (2, 4, 4, 32, 96, [1, 96], torch.float32),           # G = 1
+    (3, 8, 2, 64, 1000, [0, 999, 517], torch.float32),   # kv_len 0, odd
+    (2, 5, 1, 128, 777, [777, 5000], torch.float32),     # G = 5, > S
+    (4, 32, 8, 128, 4096, [4096, 1, 3001, 2048], torch.bfloat16),
+    (2, 8, 1, 32, 300, [299, 17], torch.bfloat16),       # G = 8
+])
+def test_flash_decode_kernel_matches_plain_on_card(cuda_device, B, Hq, Hkv,
+                                                   D, S, kv_len, dtype):
+    rng = np.random.default_rng(S + D)
+    q, k, v = _attention_inputs(rng, [(B, Hq, D), (B, S, Hkv, D),
+                                      (B, S, Hkv, D)], dtype, cuda_device)
+    kl = torch.tensor(kv_len, dtype=torch.int32, device=cuda_device)
+    before = ops.flash_decode_cuda.launches
+    got = ops.flash_decode(q, k, v, kl)
+    want = ops.flash_decode_plain(q, k, v, kl)
+    torch.cuda.synchronize()
+    assert ops.flash_decode_cuda.launches == before + 1
+    tol = 2e-5 if dtype == torch.float32 else 5e-2
+    assert got.dtype == dtype
+    assert float((got.float() - want.float()).abs().max()) < tol
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,dtype", [
+    (1, 128, 4, 1, 32, torch.float32),
+    (2, 200, 8, 2, 64, torch.float32),                   # ragged last tile
+    (1, 77, 5, 1, 128, torch.float32),
+    (1, 1024, 32, 8, 128, torch.bfloat16),
+])
+def test_flash_prefill_kernel_matches_plain_on_card(cuda_device, B, S, Hq,
+                                                    Hkv, D, dtype):
+    rng = np.random.default_rng(S + D + 1)
+    q, k, v = _attention_inputs(rng, [(B, S, Hq, D), (B, S, Hkv, D),
+                                      (B, S, Hkv, D)], dtype, cuda_device)
+    before = ops.flash_prefill_cuda.launches
+    got = ops.flash_prefill(q, k, v)
+    want = ops.flash_prefill_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert ops.flash_prefill_cuda.launches == before + 1
+    tol = 2e-5 if dtype == torch.float32 else 5e-2
+    assert float((got.float() - want.float()).abs().max()) < tol
+
+
+@pytest.mark.parametrize("kernel,args", [
+    ("flash_decode_cuda", [(2, 4, 32), (2, 8, 1, 32), (2, 8, 1, 32)]),
+    ("flash_prefill_cuda", [(1, 8, 4, 32), (1, 8, 1, 32), (1, 8, 1, 32)]),
+])
+def test_attention_kernels_refuse_cpu_tensors(kernel, args):
+    """A wrapper launches its kernel or raises: CPU tensors go to the
+    plain version through `ops`, never through the wrapper."""
+    tensors = [torch.zeros(s) for s in args]
+    if kernel == "flash_decode_cuda":
+        tensors.append(torch.ones(2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        getattr(ops, kernel)(*tensors)

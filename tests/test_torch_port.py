@@ -182,6 +182,13 @@ def test_port_imports_without_jax_or_reference():
         "sys.modules['jax'] = None\n"
         "import repro_torch.core.engine, repro_torch.carry\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.build\n"
+        "import repro_torch.models.layers, repro_torch.models.transformer\n"
+        "import repro_torch.configs.registry, repro_torch.configs.llama3_8b\n"
+        "import repro_torch.configs.granite_3_8b, "
+        "repro_torch.configs.qwen2_5_32b\n"
+        "import repro_torch.launch.steps, repro_torch.launch.serve\n"
+        "from repro_torch.configs.registry import get_arch\n"
+        "assert get_arch('llama3-8b').make_config().n_layers == 32\n"
         "bad = [m for m in sys.modules if m == 'repro' "
         "or m.startswith('repro.') or m.startswith('jax.')]\n"
         "assert not bad, bad\n"
@@ -199,6 +206,8 @@ def test_port_sources_never_import_jax_or_reference():
     files = list((SRC / "repro_torch").rglob("*.py"))
     files.append(SRC.parent / "chip_smoke.py")
     assert len(files) > 20
+    for sub in ("core", "kernels", "models", "configs", "launch"):
+        assert any(f.parent.name == sub for f in files), sub
     for f in files:
         assert not pattern.search(f.read_text()), f
 
@@ -211,6 +220,27 @@ def test_engines_need_cuda_unless_cpu_is_asked(port_world, monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA"):
             cls(port_world["index"], device="cuda")
         assert cls(port_world["index"], device="cpu").device.type == "cpu"
+
+
+def test_lm_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, capsys):
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models import transformer as tfm
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_arch("llama3-8b").make_smoke_config()
+    for fn in (lambda d: tfm.Transformer(cfg, device=d),
+               lambda d: tfm.init_params(cfg, torch.Generator(), device=d),
+               lambda d: tfm.init_cache(cfg, 2, 8, device=d),
+               lambda d: serve_lm("llama3-8b", 2, device=d)):
+        for d in (None, "cuda"):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                fn(d)
+    assert tfm.Transformer(cfg, device="cpu").device.type == "cpu"
+    assert len(serve_lm("llama3-8b", 2, device="cpu")) == 2
+    assert "cpu" in capsys.readouterr().out
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        from repro_torch.launch.serve import main
+        main(["--mode", "search"])
 
 
 @pytest.mark.parametrize("cls", [AdditionalIndexEngine, OrdinaryEngine])
