@@ -52,10 +52,32 @@ Phases, each reported on its own lines:
    every layer's q, k, v of a prefill of the prompt's first 4096 positions
    against that layer's own attention (four bf16 ulps of a row's scale;
    one launch per layer); prefill tokens/s, decode ms per step, peak
-   memory.
+   memory;
+7. recsys kernel — with the LM phases' memory handed back, the
+   embedding-bag kernel against its plain version on seeded edge cases (D
+   1 to 128, B = 1, F = 1, all-pad bags, ids past the table, sum and mean,
+   weighted or not, f32 and bf16; exact on unweighted f32 bags, else 2e-5
+   / one bf16 ulp of a row's scale) and at the real shapes (FM's
+   [5349120, 10] table and [.., 1] linear term with serve_bulk ids, the
+   table with the 1,000,000 retrieval rows, MIND's [1000000, 64] item
+   table pooling 262144 histories of 50 with ~10% pads, mean and
+   weighted), each check shown to refuse a zeroed output, the last field
+   dropped and a pad read as row 0; timed beside its bound, plain version
+   and `embedding_bag`;
+8. recsys main path — FM at full width (random weights from --seed)
+   through `recsys_serve_step` at serve_p99 and serve_bulk and
+   `recsys_retrieval_step` at retrieval_cand on ClickLog batches: every
+   `segment_bag` call held against the plain version on the same inputs
+   (exact; launches = calls), scores against the port on the CPU within
+   2e-5 at serve_p99 and retrieval, the top 128 equal where the scores are
+   apart; then AutoInt, BST and MIND at full width (serve_p99 against the
+   CPU, serve_bulk for AutoInt and BST, retrieval: MIND at 1,000,000
+   candidates, AutoInt and BST cut to 65,536; MIND's serve_bulk is cut,
+   each cut printed with its reason); QPS and step p50 / p99 per shape,
+   peak memory.
 
 Any failed check exits non-zero.  Before the last line it prints one
-`kernels` JSON line for all six kernels; the last line of standard output
+`kernels` JSON line for all seven kernels; the last line of standard output
 is `{"ok": true, "device": {...}}`.  Without a CUDA device, or without the
 repository's sources beside it, the script fails without a result.
 """
@@ -94,6 +116,13 @@ PREFILL_REAL_S = 4096          # the flash-prefill kernel's real-shape check:
 ROW_ULP = 2.0 ** -7            # one bf16 ulp of a row's largest value: a
                                # kernel against its plain version, both of
                                # which round one float32 result
+RETRIEVAL_CUT = 65536          # AutoInt and BST retrieval candidates
+RETRIEVAL_CUT_WHY = (
+    "retrieval_cand (configs/registry.py: 1 x 1,000,000 candidates) cut to "
+    "65,536: at 1,000,000 AutoInt's q, k, v and residual are 10 GB each "
+    "([1M, 39, 64] float32) and its scores 12 GB ([1M, 2, 39, 39]); BST's "
+    "logits 14 GB ([1M, 8, 21, 21]) plus the softmax copies: 55-60 GB of "
+    "transient activations in one shot, as the reference computes them")
 MODEL_ULPS = 2.0 ** -5         # four: against the model's attention, which
                                # rounds its probabilities to bf16 before the
                                # product with v (one ulp from the plain
@@ -473,6 +502,9 @@ def run(args) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     kernels += lm_phases(args, np, torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels += recsys_phases(args, np, torch)
     say("phase", name="total", seconds=f"{time.perf_counter() - t_run:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     return {"platform": "gpu", "kind": device_kind,
@@ -1245,6 +1277,409 @@ def lm_phases(args, np, torch) -> list:
                         "plain_ms": plain_ms, "bound_ms": b_ms,
                         "bound_by": b_by, "library_ms": lib_ms})
     return kernels
+
+
+# ---------------------------------------------------------------------------
+# the recsys serving path
+# ---------------------------------------------------------------------------
+
+def bag_bound(torch, table, ids, weighted):
+    """Least bytes and flops of an embedding-bag call on these inputs: of
+    the table only the 32-byte sectors of the distinct rows that the valid
+    ids name (ids >= V read the last row), each once; the int32 ids, the
+    weights when given and the float32 output once.  Two flops (multiply,
+    add) per valid id and column."""
+    V, D = table.shape
+    valid = ids >= 0
+    rows = torch.unique(ids[valid].clamp(max=V - 1).long())
+    row_bytes = D * table.element_size()
+    first, last = rows * row_bytes // 32, ((rows + 1) * row_bytes - 1) // 32
+    n_sectors = 0
+    if rows.numel():
+        span = int((last - first).max()) + 1
+        sec = first[:, None] + torch.arange(span, device=rows.device)
+        n_sectors = int(torch.unique(sec[sec <= last[:, None]]).numel())
+    B, F = ids.shape
+    nbytes = (32 * n_sectors + 4 * B * F + 4 * B * D
+              + (B * F * table.element_size() if weighted else 0))
+    return nbytes, 2 * int(valid.sum()) * D
+
+
+def bag_ok(torch, got, want, exact):
+    """The embedding-bag check: equal where `exact` (unweighted float32
+    bags: the kernel adds in the plain version's order), else the
+    absolute tolerance of the dtype and, in bf16, one bf16 ulp of each
+    output row's largest value."""
+    if exact:
+        return torch.equal(got, want)
+    return (max_err(torch, got, want) < tol_of(torch, got)
+            and (got.dtype == torch.float32
+                 or row_rel_err(torch, got, want) <= ROW_ULP))
+
+
+def bag_cases(np, torch, rng):
+    """Seeded edge cases of the embedding-bag kernel: (table, ids, weights,
+    combine) on the card.  D in {1, 10, 16, 32, 64, 128}; B = 1 and F = 1;
+    ~10% pads, an all-pad bag, an id past the table; sum and mean; with
+    and without weights; float32 and bf16."""
+    cases = []
+    shapes = [(1, 1), (7, 13), (300, 39), (2, 50)]
+    for i, D in enumerate((1, 10, 16, 32, 64, 128)):
+        for dt in (torch.float32, torch.bfloat16):
+            for j, (weighted, combine) in enumerate(
+                    ((False, "sum"), (True, "mean"), (False, "mean"),
+                     (True, "sum"))):
+                B, F = shapes[(i + j) % len(shapes)]
+                V = int(rng.integers(5, 3000))
+                ids = rng.integers(0, V, (B, F)).astype(np.int32)
+                ids[rng.random((B, F)) < 0.1] = -1
+                if B > 1:
+                    ids[0] = -1
+                ids[-1, -1] = V + int(rng.integers(0, 9))
+                table = rng.normal(size=(V, D)).astype(np.float32)
+                w = (torch.from_numpy(rng.normal(size=(B, F)).astype(np.float32))
+                     .to("cuda") if weighted else None)
+                cases.append((torch.from_numpy(table).to("cuda", dt),
+                              torch.from_numpy(ids).to("cuda"), w, combine))
+    return cases
+
+
+def recsys_batch(torch, batch, device="cuda"):
+    """A numpy ClickLog batch as torch tensors on `device`, labels dropped."""
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()
+            if k != "label"}
+
+
+def timed_steps(torch, step, model, batch, reps):
+    """One warm-up step, then `reps` steps: (last output, host seconds per
+    step, each ending in a synchronize)."""
+    out = step(model, batch)
+    torch.cuda.synchronize()
+    secs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = step(model, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return out, secs
+
+
+def report_qps(arch, shape, rows, secs, candidates=0):
+    """Queries (batch rows) per second over the steps and step p50 / p99;
+    for retrieval also candidates scored per second."""
+    extra = ({"candidates_per_s": f"{candidates * len(secs) / sum(secs):.1f}"}
+             if candidates else {})
+    say("recsys_qps", model=arch, shape=shape, batch=rows, steps=len(secs),
+        qps=f"{rows * len(secs) / sum(secs):.1f}",
+        p50_ms=f"{percentile(secs, 50) * 1e3:.3f}",
+        p99_ms=f"{percentile(secs, 99) * 1e3:.3f}", **extra)
+
+
+def score_err(torch, got, want):
+    """(max abs error, that error over the largest |want|): scores on the
+    card against the CPU's.  MIND's scores are ~1e-4, where an absolute
+    2e-5 alone would pass zeros, so both are held to 2e-5."""
+    e = max_err(torch, got.cpu(), want)
+    return e, e / max(float(want.abs().max()), 1e-30)
+
+
+def same_top(torch, idx, want_scores, tol=2e-5):
+    """The retrieval step's top-k indices `idx` [1, k] against scores
+    computed elsewhere (the CPU's), `want_scores` [1, C]: at every rank the
+    candidate's score there equals the score of that rank there within
+    `tol`, and where that rank's score is more than `tol` from its
+    neighbours the index is the same.  Returns (ranks apart, of them
+    equal, ranks whose index is equal in all)."""
+    ws = want_scores[0].double()
+    order = torch.sort(want_scores[0], descending=True, stable=True)
+    k = idx.shape[1]
+    full = order.values.double()
+    gap = torch.minimum(
+        torch.cat([full[:1].new_full((1,), math.inf), full[:-1] - full[1:]]),
+        torch.cat([full[:-1] - full[1:], full[:1].new_full((1,), math.inf)]))
+    apart = (gap > tol)[:k]
+    got = idx[0].to(ws.device)
+    check(float((ws[got] - full[:k]).abs().max()) <= tol,
+          "retrieval top-k: a rank holds a candidate whose score differs")
+    equal = got == order.indices[:k]
+    check(bool(equal[apart].all()), "retrieval top-k differs where the "
+          "scores are apart")
+    return int(apart.sum()), int(equal[apart].sum()), int(equal.sum())
+
+
+def recsys_phases(args, np, torch) -> list:
+    """Phases 7-8: recsys serving.  The embedding-bag kernel against its
+    plain version (seeded edge cases; at FM's and MIND's real shapes, timed
+    beside its bound, plain version and `embedding_bag`), each check shown
+    to refuse a wrong output; FM at full width through `recsys_serve_step`
+    (serve_p99, serve_bulk) and `recsys_retrieval_step` (retrieval_cand),
+    every `segment_bag` call of it held against the plain version and
+    counted; then AutoInt, BST and MIND at full width.  Returns the
+    kernel's entry of the `kernels` line."""
+    import torch.nn.functional as F
+    from repro_torch.configs.registry import RECSYS_SHAPES, get_arch
+    from repro_torch.data.recsys_data import ClickLog
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import (recsys_retrieval_step,
+                                          recsys_serve_step)
+    from repro_torch.models import recsys as rec
+
+    t_phase = t_start = time.perf_counter()
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "float32 products must not run in TF32 for the recsys checks")
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(args.seed)
+    p99, bulk = (RECSYS_SHAPES[s]["batch"] for s in ("serve_p99", "serve_bulk"))
+    n_cand = RECSYS_SHAPES["retrieval_cand"]["n_candidates"]
+
+    # -- 7. the embedding-bag kernel against its plain version ---------------
+    err, n_cases, n_exact, controls, edge = 0.0, 0, 0, {}, None
+
+    def held(table, ids, w, combine):
+        """The kernel's output checked against the plain version's, which
+        it returns."""
+        nonlocal err, n_cases, n_exact
+        got = ops.segment_bag(table, ids, w, combine)
+        want = ops.segment_bag_plain(table, ids, w, combine)
+        e = max_err(torch, got, want)
+        check(bag_ok(torch, got, want, w is None
+                     and table.dtype == torch.float32),
+              f"segment_bag != plain at table {tuple(table.shape)} "
+              f"{table.dtype} ids {tuple(ids.shape)} weights "
+              f"{w is not None} {combine}: max abs err {e}")
+        err, n_cases = max(err, e), n_cases + 1
+        n_exact += int(torch.equal(got, want))
+        return want
+
+    for table, ids, w, combine in bag_cases(np, torch, rng):
+        want = held(table, ids, w, combine)
+        if (edge is None and table.dtype == torch.float32 and w is None
+                and ids.shape[0] > 1):
+            edge = (table, ids, want, combine)
+
+    def refused(name, wrong, want, exact):
+        check(not bag_ok(torch, wrong, want, exact),
+              f"control {name} passes the segment_bag check")
+        controls[name] = round(row_rel_err(torch, wrong, want), 4)
+
+    def refuse_all(tag, table, ids, want, combine="sum"):
+        exact = table.dtype == torch.float32
+        refused(f"{tag}_zero", torch.zeros_like(want), want, exact)
+        refused(f"{tag}_last_field_dropped", ops.segment_bag_plain(
+            table, ids[:, :-1].contiguous(), None, combine), want, exact)
+        if bool((ids < 0).any()):
+            refused(f"{tag}_pad_as_row_0", ops.segment_bag_plain(
+                table, ids.clamp(min=0), None, combine), want, exact)
+
+    refuse_all("edge", *edge)
+    del edge
+    t_phase = phase_done("recsys_kernel_edge_cases", t_phase)
+
+    # the models whose tables the real shapes read, and their batches
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    fm_cfg = get_arch("fm").make_config()
+    fm = rec.init_params(fm_cfg, gen, "cuda")
+    fm_log = ClickLog(fm_cfg.field_vocabs, item_vocab=fm_cfg.item_vocab,
+                      seq_len=fm_cfg.seq_len, seed=args.seed)
+    fm_batches = {"serve_p99": recsys_batch(torch, fm_log.ctr_batch(p99)),
+                  "serve_bulk": recsys_batch(torch, fm_log.ctr_batch(bulk)),
+                  "retrieval_cand": recsys_batch(
+                      torch, fm_log.retrieval_batch(1, n_cand))}
+    del fm_log
+    mind_cfg = get_arch("mind").make_config()
+    mind = rec.init_params(mind_cfg, gen, "cuda")
+    mind_log = ClickLog(mind_cfg.field_vocabs, item_vocab=mind_cfg.item_vocab,
+                        seq_len=mind_cfg.seq_len, seed=args.seed)
+    hist = torch.from_numpy(mind_log.seq_batch(bulk)["hist"]).to("cuda")
+    torch.cuda.synchronize()
+    say("recsys_models", fm_table=tuple(fm.table.shape),
+        fm_w_lin=tuple(fm.w_lin.shape), mind_item_table=tuple(
+            mind.item_table.shape), fm_params=fm_cfg.param_count(),
+        mind_params=mind_cfg.param_count())
+    t_phase = phase_done("recsys_init", t_phase)
+
+    # -- 7. ... at the real shapes -------------------------------------------
+    def rows32(batch_ids, cfg):
+        return (batch_ids.long() + cfg.field_offsets("cuda")[None]).int()
+
+    hw = torch.from_numpy(rng.normal(size=tuple(hist.shape)).astype(
+        np.float32)).to("cuda")
+    fm_bulk_rows = rows32(fm_batches["serve_bulk"]["ids"], fm_cfg)
+    ret = fm_batches["retrieval_cand"]
+    ret_ids = ret["ids"].expand(n_cand, -1).clone()
+    ret_ids[:, -1] = ret["cand"] % fm_cfg.field_vocabs[-1]
+    real = {    # name -> (table, int32 ids, weights, combine)
+        "fm_table_serve_bulk": (fm.table, fm_bulk_rows, None, "sum"),
+        "fm_w_lin_serve_bulk": (fm.w_lin, fm_bulk_rows, None, "sum"),
+        "fm_table_retrieval": (fm.table, rows32(ret_ids, fm_cfg), None, "sum"),
+        "mind_hist_mean": (mind.item_table, hist, None, "mean"),
+        "mind_hist_weighted": (mind.item_table, hist, hw, "sum")}
+    del ret_ids
+    real_timing = {}
+    for name, (table, ids, w, combine) in real.items():
+        want = held(table, ids, w, combine)
+        if name in ("fm_table_serve_bulk", "mind_hist_mean"):
+            refuse_all(name, table, ids, want, combine)
+        # embedding_bag takes no negative ids: pads become row 0 with a
+        # zero per-sample weight (the mean's 1 / count folded in)
+        valid = ids >= 0
+        lib_ids = ids.clamp(0, table.shape[0] - 1)
+        lib_w = None
+        if w is not None or not bool(valid.all()):
+            lib_w = valid.to(table.dtype) * (1 if w is None else w)
+            if combine == "mean":
+                lib_w = lib_w / valid.sum(1, keepdim=True).clamp(min=1)
+        lib_mode = "mean" if combine == "mean" and lib_w is None else "sum"
+
+        def lib(table=table, lib_ids=lib_ids, lib_w=lib_w, lib_mode=lib_mode):
+            return F.embedding_bag(lib_ids, table, mode=lib_mode,
+                                   per_sample_weights=lib_w)
+
+        lib_err = max_err(torch, lib(), want)
+        real_timing[name] = (
+            time_cuda_ms(torch, lambda: ops.segment_bag(table, ids, w, combine)),
+            time_cuda_ms(torch, lambda: ops.segment_bag_plain(
+                table, ids, w, combine), iters=5),
+            bound_ms(*bag_bound(torch, table, ids, w is not None),
+                     FLOPS_PER_S["torch.float32"]),
+            time_cuda_ms(torch, lib))
+        ms, plain_ms, (b_ms, b_by), lib_ms = real_timing[name]
+        say("recsys_kernel_shape", name=name, table=tuple(table.shape),
+            ids=tuple(ids.shape), pads=int((~valid).sum()),
+            weights=w is not None, combine=combine, ms=f"{ms:.4f}",
+            plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.4f}", bound_by=b_by,
+            embedding_bag_ms=f"{lib_ms:.4f}",
+            embedding_bag_vs_plain=f"{lib_err:.3g}")
+        del want, valid, lib_ids, lib_w
+    del real, hw, fm_bulk_rows
+    say("recsys_kernel_check", cases=n_cases, exact=n_exact,
+        max_abs_err=f"{err:.4g}", controls=json.dumps(controls))
+    torch.cuda.empty_cache()
+    t_phase = phase_done("recsys_kernels", t_phase)
+
+    # -- 8. FM main path at full width ---------------------------------------
+    fm_cpu = rec.RecSysModel(fm_cfg, "cpu")
+    fm_cpu.load_state_dict(fm.state_dict())
+    ops.segment_bag_cuda.launches = 0
+    reps = {"serve_p99": 30, "serve_bulk": 5, "retrieval_cand": 3}
+    outs = {}
+    with recording(ops, "segment_bag", []) as calls:
+        for shape, batch in fm_batches.items():
+            retrieval = shape == "retrieval_cand"
+            step = recsys_retrieval_step if retrieval else recsys_serve_step
+            outs[shape], secs = timed_steps(torch, step, fm, batch,
+                                            reps[shape])
+            report_qps("fm", shape, batch["ids"].shape[0], secs,
+                       n_cand if retrieval else 0)
+    launches = ops.segment_bag_cuda.launches
+    fm_steps = 2 * sum(r + 1 for r in reps.values())
+    check(len(calls) == fm_steps and launches == len(calls),
+          f"segment_bag launched {launches} times for {len(calls)} calls on "
+          f"the FM path; want {fm_steps}")
+    for (table, ids), out in calls:
+        check(torch.equal(out, ops.segment_bag_plain(table, ids)),
+              f"segment_bag on the FM path != plain at ids "
+              f"{tuple(ids.shape)}")
+    n_calls = len(calls)
+    del calls
+    scores_p99 = outs["serve_p99"]
+    want_p99 = recsys_serve_step(fm_cpu, {
+        k: v.cpu() for k, v in fm_batches["serve_p99"].items()})
+    e_p99 = score_err(torch, scores_p99, want_p99)
+    cpu_ret = {k: v.cpu() for k, v in ret.items()}
+    want_ret = rec.retrieval_scores(fm_cpu, cpu_ret)
+    got_ret = rec.retrieval_scores(fm, ret)
+    e_ret = score_err(torch, got_ret, want_ret)
+    vals, idx = outs["retrieval_cand"]
+    top = same_top(torch, idx, want_ret)
+    finite = all(bool(torch.isfinite(x).all()) for x in
+                 (scores_p99, outs["serve_bulk"], got_ret, vals))
+    say("recsys_check", model="fm", serve_p99_vs_cpu=f"{e_p99[0]:.4g}",
+        serve_p99_vs_cpu_of_scale=f"{e_p99[1]:.4g}",
+        retrieval_vs_cpu=f"{e_ret[0]:.4g}",
+        retrieval_vs_cpu_of_scale=f"{e_ret[1]:.4g}", top128_ranks_apart=top[0],
+        top128_equal_where_apart=top[1], top128_equal=top[2], finite=finite,
+        segment_bag_calls=n_calls, segment_bag_launches=launches,
+        shapes=json.dumps({k: list(v.shape) for k, v in
+                           (("serve_p99", scores_p99),
+                            ("serve_bulk", outs["serve_bulk"]),
+                            ("retrieval_top", idx))}))
+    check(finite, "non-finite FM scores")
+    check(max(e_p99 + e_ret) <= 2e-5, f"FM scores on the card differ from "
+          f"the CPU's: serve_p99 {e_p99}, retrieval {e_ret} (abs, of scale)")
+    # FM's ties are exact on both devices (its sums run in a fixed order
+    # per row), so the whole top 128 is the CPU's
+    check(top[2] == idx.shape[1], f"FM top-128 indices equal the CPU's at "
+          f"{top[2]} ranks")
+    check(tuple(outs["serve_bulk"].shape) == (bulk,)
+          and tuple(idx.shape) == (1, 128), "FM output shapes")
+    del fm_cpu, outs, want_ret, got_ret, cpu_ret, vals, idx, ret
+    torch.cuda.empty_cache()
+    t_phase = phase_done("recsys_fm_main_path", t_phase)
+
+    # -- 8. AutoInt, BST and MIND at full width ------------------------------
+    say("recsys_cut", model="mind", shape="serve_bulk", reason=json.dumps(
+        f"serve_scores takes the diagonal of mind_train_logits, a [B, B] "
+        f"float32 matrix: {4 * bulk * bulk / 1e9:.0f} GB at B {bulk}"))
+    for arch in ("autoint", "bst"):
+        say("recsys_cut", model=arch, shape="retrieval_cand",
+            candidates=RETRIEVAL_CUT, reason=json.dumps(RETRIEVAL_CUT_WHY))
+    del fm, fm_batches
+    for arch in ("autoint", "bst", "mind"):
+        if arch == "mind":
+            cfg, model, log = mind_cfg, mind, mind_log
+        else:
+            cfg = get_arch(arch).make_config()
+            model = rec.init_params(cfg, gen, "cuda")
+            log = ClickLog(cfg.field_vocabs, item_vocab=cfg.item_vocab,
+                           seq_len=cfg.seq_len, seed=args.seed)
+        seq = arch != "autoint"
+        small = log.seq_batch(p99) if seq else log.ctr_batch(p99)
+        scores, secs = timed_steps(torch, recsys_serve_step, model,
+                                   recsys_batch(torch, small), 10)
+        report_qps(arch, "serve_p99", p99, secs)
+        cpu_model = rec.RecSysModel(cfg, "cpu")
+        cpu_model.load_state_dict(model.state_dict())
+        e = score_err(torch, scores, recsys_serve_step(
+            cpu_model, recsys_batch(torch, small, "cpu")))
+        del cpu_model
+        outs = [scores]
+        if arch != "mind":
+            big = log.seq_batch(bulk) if seq else log.ctr_batch(bulk)
+            out, secs = timed_steps(torch, recsys_serve_step, model,
+                                    recsys_batch(torch, big), 3)
+            report_qps(arch, "serve_bulk", bulk, secs)
+            check(tuple(out.shape) == (bulk,), f"{arch} serve_bulk shape")
+            outs.append(out)
+            del big, out
+        c = n_cand if arch == "mind" else min(n_cand, RETRIEVAL_CUT)
+        (vals, idx), secs = timed_steps(
+            torch, recsys_retrieval_step, model,
+            recsys_batch(torch, log.retrieval_batch(1, c)), 3)
+        report_qps(arch, "retrieval_cand", 1, secs, c)
+        outs.append(vals)
+        finite = all(bool(torch.isfinite(x).all()) for x in outs)
+        say("recsys_check", model=arch, serve_p99_vs_cpu=f"{e[0]:.4g}",
+            serve_p99_vs_cpu_of_scale=f"{e[1]:.4g}", finite=finite, retrieval_candidates=c,
+            retrieval_top=list(idx.shape))
+        check(finite, f"non-finite {arch} scores")
+        check(max(e) <= 2e-5, f"{arch} serve_p99 scores on the card differ "
+              f"from the CPU's by {e} (abs, of scale)")
+        check(tuple(idx.shape) == (1, 128), f"{arch} retrieval top-k shape")
+        del model, log, outs, vals, idx, scores
+        torch.cuda.empty_cache()
+    del mind
+    say("recsys_memory", max_memory_allocated=torch.cuda.max_memory_allocated())
+    phase_done("recsys_other_models", t_phase)
+    phase_done("recsys", t_start)
+
+    ms, plain_ms, (b_ms, b_by), lib_ms = real_timing["fm_table_serve_bulk"]
+    return [{"name": "segment_bag", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/segment_bag.cu",
+             "replaces": "src/repro/kernels/segment_bag.py:33",
+             "launches": launches, "max_abs_err": err, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": lib_ms}]
 
 
 # ---------------------------------------------------------------------------

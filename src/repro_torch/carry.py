@@ -12,7 +12,10 @@ index the port built itself.
 
 `lm_params_from_reference(params, cfg, device)` does the same for a
 reference LM parameter dict (numpy arrays, layers stacked [L, ...]): it
-returns the port's `Transformer` with each array cast to `cfg.dtype`.
+returns the port's `Transformer` with each array cast to `cfg.dtype`;
+`recsys_params_from_reference(params, cfg, device)` returns the port's
+`RecSysModel` for a reference recsys parameter dict (lists of layer dicts
+become `attn.{i}.wq`-style names).
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from repro_torch.core.lexicon import Lexicon, LexiconConfig
 from repro_torch.core.multi_key_index import MultiKeyIndex
 from repro_torch.core.postings import CSR, DenseCSR, PackedPostings
 from repro_torch.core.stop_phrase_index import StopPhraseIndex
+from repro_torch.models.recsys import RecSysConfig, RecSysModel
 from repro_torch.models.transformer import Transformer, TransformerConfig
 
 # the reference's index classes, by name, and their port counterparts
@@ -100,4 +104,40 @@ def lm_params_from_reference(params: dict, cfg: TransformerConfig,
     put(model.final_norm, params["final_norm"], "final_norm")
     if not cfg.tie_embeddings:
         put(model.lm_head, params["lm_head"], "lm_head")
+    return model
+
+
+def _flat_names(params: dict, prefix: str = "") -> dict:
+    """{'attn': [{'wq': a}, ...], 'table': t} -> {'attn.0.wq': a,
+    'table': t}: the reference's dict under the port's names."""
+    out = {}
+    for key, value in params.items():
+        if isinstance(value, list):
+            for i, item in enumerate(value):
+                out.update(_flat_names(item, f"{prefix}{key}.{i}."))
+        else:
+            out[f"{prefix}{key}"] = value
+    return out
+
+
+@torch.no_grad()
+def recsys_params_from_reference(params: dict, cfg: RecSysConfig,
+                                 device=None) -> RecSysModel:
+    """The port's model holding the reference recsys parameters `params`
+    (numpy arrays; `attn`, `blocks`, `mlp` lists of dicts), each cast to
+    `cfg.param_dtype`, on `device` (the card unless the caller asks for
+    the CPU).  Names and shapes must match the model's; reads arrays
+    only."""
+    model = RecSysModel(cfg, device)
+    flat = _flat_names(params)
+    want = dict(model.named_parameters())
+    if set(flat) != set(want):
+        raise ValueError(f"parameters {sorted(flat)}, want {sorted(want)} "
+                         f"(a {cfg.model} model)")
+    for name, dst in want.items():
+        src = torch.from_numpy(np.array(flat[name], dtype=np.float32))
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"{name}: shape {tuple(src.shape)}, want "
+                             f"{tuple(dst.shape)}")
+        dst.copy_(src.to(cfg.param_dtype))
     return model

@@ -1,9 +1,9 @@
 """Architecture registry of the port: --arch <id> resolves here.
 
 A copy of src/repro/configs/registry.py for the architectures the port has
-(the dense decoder LMs).  Every other architecture of the reference raises
-in `get_arch`, naming the ROADMAP.md item that ports it; none gets a
-stand-in.
+(the dense decoder LMs and the four recsys models).  Every other
+architecture of the reference raises in `get_arch`, naming the ROADMAP.md
+item that ports it; none gets a stand-in.
 """
 from __future__ import annotations
 
@@ -23,6 +23,10 @@ _MODULES = {
     "granite-3-8b": "repro_torch.configs.granite_3_8b",
     "qwen2.5-32b": "repro_torch.configs.qwen2_5_32b",
     "llama3-8b": "repro_torch.configs.llama3_8b",
+    "fm": "repro_torch.configs.fm",
+    "mind": "repro_torch.configs.mind",
+    "autoint": "repro_torch.configs.autoint",
+    "bst": "repro_torch.configs.bst",
 }
 
 # what ports the rest (ROADMAP.md, "Open items", queue 1)
@@ -30,10 +34,6 @@ _NOT_PORTED = {
     "granite-moe-1b-a400m": "item 10 (models/moe.py)",
     "moonshot-v1-16b-a3b": "item 10 (models/moe.py)",
     "gin-tu": "item 10 (models/gnn.py)",
-    "fm": "item 10 (models/recsys.py)",
-    "mind": "item 10 (models/recsys.py)",
-    "autoint": "item 10 (models/recsys.py)",
-    "bst": "item 10 (models/recsys.py)",
     "veretennikov": "item 6 (serve/search_serve.py)",
 }
 
@@ -64,4 +64,11 @@ LM_SHAPES = {
     "prefill_32k": {"kind": "prefill", "seq_len": 32768, "global_batch": 32},
     "decode_32k": {"kind": "decode", "seq_len": 32768, "global_batch": 128},
     "long_500k": {"kind": "decode", "seq_len": 524288, "global_batch": 1},
+}
+
+RECSYS_SHAPES = {
+    "train_batch": {"kind": "train", "batch": 65536},
+    "serve_p99": {"kind": "serve", "batch": 512},
+    "serve_bulk": {"kind": "serve", "batch": 262144},
+    "retrieval_cand": {"kind": "retrieval", "batch": 1, "n_candidates": 1_000_000},
 }

@@ -27,7 +27,7 @@ from pathlib import Path
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 SOURCES = ("unpack", "intersect", "min_delta", "delta_mask",
-           "flash_decode", "flash_prefill")
+           "flash_decode", "flash_prefill", "segment_bag")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -48,6 +48,8 @@ SIGNATURES = {
                       _VP)),
     "flash_prefill": ("flash_prefill_launch",
                       (_VP, _VP, _VP, _VP, _LL, _LL, _LL, _LL, _LL, _LL, _VP)),
+    "segment_bag": ("segment_bag_launch",
+                    (_VP, _LL, _LL, _VP, _VP, _LL, _LL, _VP, _LL, _VP)),
 }
 
 

@@ -2,7 +2,7 @@
 
 Each op dispatches on the device of its tensors: a CUDA tensor launches the
 hand-written kernel (unpack.py, intersect.py, flash_decode.py,
-flash_prefill.py; sources in csrc/) or raises,
+flash_prefill.py, segment_bag.py; sources in csrc/) or raises,
 a CPU tensor takes the plain version below.  The plain versions are pure
 tensor code that runs on either device; the CPU tests hold them against the
 reference package, and chip_smoke.py holds the kernels against them on the
@@ -13,6 +13,7 @@ kernel in the reference.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -21,6 +22,7 @@ from repro_torch.kernels.flash_prefill import flash_prefill_cuda
 from repro_torch.kernels.intersect import (banded_delta_mask_rows_cuda,
                                            banded_intersect_rows_cuda,
                                            banded_min_delta_rows_cuda)
+from repro_torch.kernels.segment_bag import segment_bag_cuda
 from repro_torch.kernels.unpack import unpack_postings_cuda
 
 I32_SENTINEL = 2**31 - 1     # int32 pad key: never matches a banded probe
@@ -306,3 +308,88 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_decode_plain(q, k, v, kv_len)
     return flash_decode_cuda(q, k, v, _kv_len_rows(kv_len, q.shape[0],
                                                    q.device))
+
+
+# ---------------------------------------------------------------------------
+# embedding bag
+# ---------------------------------------------------------------------------
+
+def _bag_sums_plain(table: torch.Tensor, ids: torch.Tensor,
+                    weights: Optional[torch.Tensor]) -> torch.Tensor:
+    """The kernel's function: float32 [B, D] sums of table rows (times the
+    weights, when given), added field by field f = 0 .. F-1 as the Pallas
+    grid does, the product and the sum rounded apart; negative ids are
+    skipped and ids >= V read row V - 1 (the reference's clamping
+    gather)."""
+    B, F = ids.shape
+    V, D = table.shape
+    out = torch.zeros((B, D), dtype=torch.float32, device=table.device)
+    valid = ids >= 0
+    rows = ids.clamp(0, V - 1).long()
+    for f in range(F):
+        x = table[rows[:, f]].float()
+        if weights is not None:
+            x = weights[:, f, None].float() * x
+        out = torch.where(valid[:, f, None], out + x, out)
+    return out
+
+
+def _bag_combine(sums: torch.Tensor, ids: torch.Tensor, combine: str,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """The reference wrapper's tail: mean divides by the count of valid ids
+    (at least 1) in float32; the result takes the table's dtype."""
+    if combine == "mean":
+        denom = (ids >= 0).sum(dim=1, keepdim=True).clamp(min=1).float()
+        sums = sums / denom
+    return sums.to(dtype)
+
+
+def _check_bag_args(table, ids, weights, combine):
+    if combine not in ("sum", "mean"):
+        raise ValueError(f"segment_bag: combine {combine!r}, want 'sum' or "
+                         f"'mean'")
+    if table.dim() != 2 or ids.dim() != 2:
+        raise ValueError(f"segment_bag: table {tuple(table.shape)}, ids "
+                         f"{tuple(ids.shape)}: want [V, D] and [B, F]")
+    if ids.dtype.is_floating_point or ids.dtype == torch.bool:
+        raise ValueError(f"segment_bag: ids are {ids.dtype}, want integers")
+    if weights is not None and weights.shape != ids.shape:
+        raise ValueError(f"segment_bag: weights {tuple(weights.shape)}, ids "
+                         f"{tuple(ids.shape)}")
+
+
+def segment_bag_plain(table: torch.Tensor, ids: torch.Tensor,
+                      weights: Optional[torch.Tensor] = None,
+                      combine: str = "sum") -> torch.Tensor:
+    """EmbeddingBag(table, ids) -> [B, D] in table's dtype, in plain tensor
+    code on any device: table [V, D]; ids [B, F] (negative = pad); weights
+    [B, F] (default ones; cast to table's dtype first, so bf16 tables
+    round their weights); combine 'sum' or 'mean'.  The reference's
+    `ops.segment_bag` around `ref.segment_bag_ref`'s function."""
+    _check_bag_args(table, ids, weights, combine)
+    w = None if weights is None else weights.to(table.dtype)
+    return _bag_combine(_bag_sums_plain(table, ids, w), ids, combine,
+                        table.dtype)
+
+
+def segment_bag(table: torch.Tensor, ids: torch.Tensor,
+                weights: Optional[torch.Tensor] = None,
+                combine: str = "sum") -> torch.Tensor:
+    """EmbeddingBag (see segment_bag_plain) — the CUDA kernel on the card,
+    the plain version on the CPU.  On the card the kernel takes int32 ids:
+    ids of a wider type are clamped to [-1, V - 1] first, so that none
+    wraps in the cast (the kernel clamps int32 ids >= V itself), and the
+    float32 sums get the mean and the table's dtype here, as in the
+    reference's wrapper."""
+    if _on_cpu(table, "segment_bag"):
+        return segment_bag_plain(table, ids, weights, combine)
+    _check_bag_args(table, ids, weights, combine)
+    V = table.shape[0]
+    if ids.dtype != torch.int32:
+        if V >= 2**31:
+            raise ValueError(f"segment_bag: {V} table rows do not fit the "
+                             f"kernel's int32 ids")
+        ids = ids.clamp(-1, V - 1).to(torch.int32)
+    w = None if weights is None else weights.to(table.dtype).contiguous()
+    sums = segment_bag_cuda(table.contiguous(), ids.contiguous(), w)
+    return _bag_combine(sums, ids, combine, table.dtype)

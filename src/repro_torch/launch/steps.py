@@ -1,14 +1,19 @@
-"""Serving steps of the LM: the prefill that fills the KV cache.
+"""Serving steps: the LM prefill that fills the KV cache, and the recsys
+serve and retrieval steps.
 
-The port of `forward_with_cache` from src/repro/launch/steps.py.  The
-reference module also holds the dry-run cells (sharded lowering of every
-architecture and shape), which are not ported yet (ROADMAP.md).
+The port of `forward_with_cache` and of the recsys cells' step bodies from
+src/repro/launch/steps.py, without the mesh.  The reference module also
+holds the dry-run cells (sharded lowering of every architecture and
+shape) and the training steps, which are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.models import recsys as rec
 from repro_torch.models.transformer import Transformer
+
+RETRIEVAL_TOP_K = 128          # the reference retrieval cell's lax.top_k
 
 
 @torch.no_grad()
@@ -30,3 +35,22 @@ def forward_with_cache(model: Transformer, tokens: torch.Tensor):
         cv.copy_(v)
         del k, v
     return model.logits(x[:, -1]), {"k": ks, "v": vs}
+
+
+@torch.no_grad()
+def recsys_serve_step(model: rec.RecSysModel, batch: dict) -> torch.Tensor:
+    """The recsys serve cell's step: float32 scores [B] of `batch` (torch
+    tensors on the model's device: `ids`, and `hist`, `target` for bst and
+    mind)."""
+    return rec.serve_scores(model, batch)
+
+
+@torch.no_grad()
+def recsys_retrieval_step(model: rec.RecSysModel, batch: dict):
+    """The recsys retrieval cell's step: `retrieval_scores` of `batch`
+    (`cand` [C] besides the serve inputs), then its top RETRIEVAL_TOP_K per
+    row as (values, indices), ties to the lower index as `jax.lax.top_k`
+    (a stable descending sort: `torch.topk` promises no order on ties)."""
+    scores = rec.retrieval_scores(model, batch)
+    values, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return values[:, :RETRIEVAL_TOP_K], idx[:, :RETRIEVAL_TOP_K]

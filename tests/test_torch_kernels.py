@@ -3,10 +3,13 @@
 The port's plain versions (repro_torch.kernels.ops.*_plain, which the CPU
 path runs) must equal the reference's Pallas path in interpret mode
 exactly — both are integer functions (tests/test_torch_lm.py does the same
-for the two attention kernels' plain versions).  The CUDA kernels
-themselves run only on a card: their tests take the `cuda_device` fixture,
-which skips without one, and hold each kernel against its plain version on
-the card (the attention kernels to 2e-5 in float32 and 5e-2 in bf16).
+for the two attention kernels' plain versions, tests/test_torch_recsys.py
+for the embedding bag's).  The CUDA kernels themselves run only on a card:
+their tests take the `cuda_device` fixture, which skips without one, and
+hold each kernel against its plain version on the card (the attention
+kernels to 2e-5 in float32 and 5e-2 in bf16; the embedding bag exactly in
+float32 — it adds in the plain version's order, product and sum rounded
+apart — and to 5e-2 in bf16).
 """
 import numpy as np
 import pytest
@@ -493,3 +496,36 @@ def test_attention_kernels_refuse_cpu_tensors(kernel, args):
         tensors.append(torch.ones(2, dtype=torch.int32))
     with pytest.raises(ValueError, match="CUDA tensor"):
         getattr(ops, kernel)(*tensors)
+
+
+@pytest.mark.parametrize("B,F,V,D,dtype,weighted,combine", [
+    (1, 1, 7, 1, torch.float32, False, "sum"),           # B = 1, F = 1
+    (300, 39, 5000, 10, torch.float32, False, "sum"),    # FM's width
+    (129, 50, 1000, 64, torch.float32, True, "mean"),
+    (64, 13, 100, 128, torch.float32, True, "sum"),
+    (77, 20, 300, 32, torch.bfloat16, True, "mean"),
+    (50, 9, 40, 16, torch.bfloat16, False, "sum"),
+])
+def test_segment_bag_kernel_matches_plain_on_card(cuda_device, B, F, V, D,
+                                                  dtype, weighted, combine):
+    rng = np.random.default_rng(B + F + D)
+    table = torch.from_numpy(rng.normal(size=(V, D)).astype(np.float32))
+    ids = rng.integers(0, V, (B, F)).astype(np.int32)
+    ids[rng.random((B, F)) < 0.1] = -1
+    if B > 1:
+        ids[0] = -1                                      # an all-pad bag
+    ids[-1, -1] = V + 5                                  # clamped to V - 1
+    weights = (torch.from_numpy(rng.normal(size=(B, F)).astype(np.float32))
+               .to(cuda_device) if weighted else None)
+    table = table.to(device=cuda_device, dtype=dtype)
+    ids = torch.from_numpy(ids).to(cuda_device)
+    before = ops.segment_bag_cuda.launches
+    got = ops.segment_bag(table, ids, weights, combine)
+    want = ops.segment_bag_plain(table, ids, weights, combine)
+    torch.cuda.synchronize()
+    assert ops.segment_bag_cuda.launches == before + 1
+    assert got.dtype == dtype and got.shape == (B, D)
+    if dtype == torch.float32:
+        assert torch.equal(got, want)
+    else:
+        assert float((got.float() - want.float()).abs().max()) < 5e-2

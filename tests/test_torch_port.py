@@ -187,8 +187,12 @@ def test_port_imports_without_jax_or_reference():
         "import repro_torch.configs.granite_3_8b, "
         "repro_torch.configs.qwen2_5_32b\n"
         "import repro_torch.launch.steps, repro_torch.launch.serve\n"
+        "import repro_torch.models.recsys, repro_torch.data.recsys_data\n"
+        "import repro_torch.kernels.segment_bag\n"
         "from repro_torch.configs.registry import get_arch\n"
         "assert get_arch('llama3-8b').make_config().n_layers == 32\n"
+        "for a in ('fm', 'autoint', 'bst', 'mind'):\n"
+        "    assert get_arch(a).make_config().model == a\n"
         "bad = [m for m in sys.modules if m == 'repro' "
         "or m.startswith('repro.') or m.startswith('jax.')]\n"
         "assert not bad, bad\n"
@@ -206,7 +210,7 @@ def test_port_sources_never_import_jax_or_reference():
     files = list((SRC / "repro_torch").rglob("*.py"))
     files.append(SRC.parent / "chip_smoke.py")
     assert len(files) > 20
-    for sub in ("core", "kernels", "models", "configs", "launch"):
+    for sub in ("core", "kernels", "models", "configs", "launch", "data"):
         assert any(f.parent.name == sub for f in files), sub
     for f in files:
         assert not pattern.search(f.read_text()), f
