@@ -4,6 +4,8 @@
     python3 chip_smoke.py [--docs N] [--seed S] [--lm-arch A] [--lm-batch B]
                           [--lm-prompt P] [--lm-steps T]
     python3 chip_smoke.py --ab PARENT . . PARENT     # see run_ab
+    python3 chip_smoke.py --ab-attention PARENT . . PARENT
+                                                     # see run_ab_attention
 
 Phases, each reported on its own lines:
 
@@ -30,11 +32,15 @@ Phases, each reported on its own lines:
    first 8 of every new batch against the brute-force oracles; all four
    kernels' launch counters must rise in this phase;
 5. LM kernels — with the search phases' memory handed back, `--lm-arch`
-   (llama3-8b) at full width in bf16 with random weights from --seed; the
+   (llama3-8b) at full width in bf16 with random weights from --seed; each
+   kernel's design at the path's shapes (the decode's split of the cache;
+   registers, shared memory and tiles of the compiled kernels); the
    flash-decode and flash-prefill kernels against their plain versions on
-   seeded edge cases (kv_len 0, 1, S and odd; G 1, 4, 5, 8; D 32, 64, 128;
-   f32 to 2e-5, bf16 to 5e-2 and to one bf16 ulp of each output row's
-   largest value) and at the path's real shapes (decode over the
+   seeded edge cases (kv_len 0, 1, S and odd, one row past a chunk of the
+   split, on one, shorter than one beside long rows; S below a tile and
+   ragged; G 1, 4, 5, 8; D 32, 64, 128; f32 to 2e-5, bf16 to 5e-2 and to
+   one bf16 ulp of each output row's largest value) and at the path's
+   real shapes (decode over the
    [B, 32768, 8, 128] cache at kv_len = the prompt, with random rows and
    with needle rows at both ends; prefill on the prompt's first 4096
    positions at batch 1), each check shown to refuse a zeroed output, a
@@ -52,7 +58,8 @@ Phases, each reported on its own lines:
    every layer's q, k, v of a prefill of the prompt's first 4096 positions
    against that layer's own attention (four bf16 ulps of a row's scale;
    one launch per layer); prefill tokens/s, decode ms per step, peak
-   memory;
+   memory; then two more flash steps under torch.profiler: the device's
+   busy ms per step, its idle share and the kernels that lead;
 7. recsys kernel — with the LM phases' memory handed back, the
    embedding-bag kernel against its plain version on seeded edge cases (D
    1 to 128, B = 1, F = 1, all-pad bags, ids past the table, sum and mean,
@@ -491,7 +498,8 @@ def run(args) -> dict:
     t_phase = time.perf_counter()
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "Compiling entry" in line):
                 say("ptxas", source=name, info=json.dumps(line.strip()))
 
     with contextlib.ExitStack() as stack:      # ends the oracle's workers
@@ -890,7 +898,14 @@ def attention_cases(np, torch, rng):
             (2, 5, 1, 128, 777, [777, 5000], f32),           # G = 5, > S
             (4, 16, 4, 64, 2048, [1, 2048, 1023, 0], bf16),  # G = 4
             (2, 5, 1, 32, 333, [333, 2], bf16),
-            (2, 8, 1, 128, 4096, [4095, 3], bf16)]:          # G = 8
+            (2, 8, 1, 128, 4096, [4095, 3], bf16),           # G = 8
+            # the split's edges (512-row chunks at S 8192, B 4, Hkv 8;
+            # 64-row chunks at S 1000, B 3, Hkv 2): one row past a chunk
+            # boundary, on one, shorter than a chunk beside long rows
+            (4, 32, 8, 128, 8192, [513, 1024, 100, 8192], bf16),
+            (4, 32, 8, 128, 8192, [511, 512, 1, 0], bf16),
+            (3, 8, 2, 64, 1000, [0, 1000, 5000], bf16),      # 0 beside S
+            (3, 8, 2, 64, 1000, [65, 64, 63], f32)]:         # S % 64 != 0
         q, k, v = make([(B, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D)], dt)
         decode.append((q, k, v, torch.tensor(kv_len, dtype=torch.int32,
                                              device="cuda")))
@@ -898,7 +913,11 @@ def attention_cases(np, torch, rng):
                for B, S, Hq, Hkv, D, dt in [
                    (1, 128, 4, 1, 32, f32), (2, 200, 8, 2, 64, f32),
                    (1, 77, 5, 1, 128, f32), (1, 300, 12, 3, 64, bf16),
-                   (2, 64, 4, 4, 128, bf16), (1, 1000, 8, 1, 32, bf16)]]
+                   (2, 64, 4, 4, 128, bf16), (1, 1000, 8, 1, 32, bf16),
+                   # the wgmma route's tile edges: S below one kv tile, not
+                   # a multiple of the 128-row q tile; G 1, 5 and 8
+                   (1, 1, 1, 1, 64, bf16), (1, 40, 5, 1, 128, bf16),
+                   (1, 129, 4, 4, 32, bf16), (2, 333, 8, 1, 128, bf16)]]
     return decode, prefill
 
 
@@ -982,6 +1001,47 @@ def needle_cache(torch, q, k, v, kv_len):
     return nk, v.clone()
 
 
+def decode_trace(torch, tfm, model, cache, tok, cur_len, steps=2):
+    """Wall and device time of `steps` flash decode steps under
+    torch.profiler: the device's busy ms per step (the sum of its kernels'
+    times), its idle share, the attention kernels' and the products'
+    share, and the kernels that take the most time.  A profiler that
+    records no device activity gives {"traced": False} and a reason."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for s in range(steps):
+                tfm.decode_step(model, cache, tok, cur_len + s,
+                                attn_impl="flash")
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                us = e.time_range.end - e.time_range.start
+                by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3 / steps
+    except Exception as e:                 # a diagnostic: the run goes on
+        return {"traced": False, "reason": json.dumps(f"{type(e).__name__}: {e}")}
+    if not by_name:
+        return {"traced": False, "reason": "no device activity recorded"}
+    busy = sum(by_name.values())
+    attn = sum(v for k, v in by_name.items() if "decode_" in k)
+    gemm = sum(v for k, v in by_name.items()
+               if any(w in k.lower() for w in ("gemm", "gemv", "cutlass", "nvjet")))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return {"traced": True, "steps": steps, "wall_ms_per_step": f"{wall_ms:.3f}",
+            "device_busy_ms_per_step": f"{busy:.3f}",
+            "device_idle_share": f"{1 - busy / wall_ms:.3f}",
+            "flash_decode_ms_per_step": f"{attn:.3f}",
+            "matmul_ms_per_step": f"{gemm:.3f}",
+            "kernel_kinds": len(by_name),
+            "top": json.dumps({k[:60]: round(v, 3) for k, v in top})}
+
+
 def lm_phases(args, np, torch) -> list:
     """Phases 5-6: the LM serving path of `--lm-arch` at full width (bf16,
     random weights from --seed).  The two attention kernels against their
@@ -1025,6 +1085,23 @@ def lm_phases(args, np, torch) -> list:
         prefill_chunks=cfg.attn_chunk.for_seq(P))
     say("lm_model", cut=json.dumps(LM_CUT))
     t_phase = phase_done("lm_init", t_phase)
+
+    # the two kernels' designs at the path's shapes: the decode's split of
+    # the cache and both kernels' compiled resources, as the runtime
+    # reports them (the ptxas lines above give the same registers)
+    from repro_torch.kernels.flash_decode import decode_split, flash_decode_info
+    from repro_torch.kernels.flash_prefill import flash_prefill_info
+    chunk, n_split = decode_split(s_max, B, cfg.n_kv_heads)
+    say("kernel_design", name="flash_decode",
+        cache=f"[{B},{s_max},{cfg.n_kv_heads},{cfg.hd}]", chunk_rows=chunk,
+        n_split=n_split, ctas=B * cfg.n_kv_heads * n_split,
+        cuda_launches_per_call=2,
+        **flash_decode_info(cfg.hd, cfg.dtype, cfg.n_heads // cfg.n_kv_heads))
+    say("kernel_design", name="flash_prefill", route="wgmma_bf16",
+        pv="P rounded to bf16, one wgmma per k16 step (no hi/lo split)",
+        **flash_prefill_info(cfg.hd, cfg.dtype))
+    say("kernel_design", name="flash_prefill", route="cuda_cores_f32",
+        **flash_prefill_info(cfg.hd, torch.float32))
 
     # -- 5. the attention kernels against their plain versions ---------------
     rng = np.random.default_rng(args.seed)
@@ -1221,6 +1298,10 @@ def lm_phases(args, np, torch) -> list:
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in counters.items()}
     t_phase = phase_done("lm_main_path", t_phase)
+    # where a flash decode step's time goes: two more steps (cache slots
+    # past the checked ones) under torch.profiler, after the counts are read
+    say("lm_decode_trace", **decode_trace(torch, tfm, model, cache, fed[-1],
+                                          P + T))
 
     logit_err = max_err(torch, flash_logits, plain_logits)
     agree = int((flash_logits[..., :cfg.vocab].argmax(-1)
@@ -1815,6 +1896,83 @@ def run_ab(args) -> int:
     return 0
 
 
+def _ab_attention_tree(tree, shapes, seed, conn):
+    """One spawned run: `repro_torch` from `tree` only; its two attention
+    kernels on seeded inputs at the LM path's real shapes, each held
+    against its plain version, then timed."""
+    try:
+        sys.path.insert(0, str(Path(tree).resolve() / "src"))
+        import torch
+        from repro_torch.kernels import ops
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+
+        def randn(shape):
+            return torch.randn(shape, generator=gen,
+                               device="cuda").to(torch.bfloat16)
+        B, Hq, Hkv, D, S, P, S0 = shapes
+        q, k, v = randn((B, Hq, D)), randn((B, S, Hkv, D)), randn((B, S, Hkv, D))
+        kv_len = torch.full((B,), P, dtype=torch.int32, device="cuda")
+        hold(torch, f"{tree}: flash_decode != plain",
+             ops.flash_decode(q, k, v, kv_len),
+             ops.flash_decode_plain(q, k, v, kv_len))
+        out = {"flash_decode_ms": time_cuda_ms(
+            torch, lambda: ops.flash_decode(q, k, v, kv_len))}
+        del q, k, v
+        q, k, v = randn((1, S0, Hq, D)), randn((1, S0, Hkv, D)), randn((1, S0, Hkv, D))
+        hold(torch, f"{tree}: flash_prefill != plain",
+             ops.flash_prefill(q, k, v), ops.flash_prefill_plain(q, k, v))
+        out["flash_prefill_ms"] = time_cuda_ms(
+            torch, lambda: ops.flash_prefill(q, k, v))
+        conn.send(out)
+    except BaseException as e:                      # reported by the parent
+        conn.send({"error": f"{type(e).__name__}: {e}"})
+    finally:
+        conn.close()
+
+
+def run_ab_attention(args) -> int:
+    """`--ab-attention TREE ...`: the flash-decode and flash-prefill kernels
+    of each checkout in TREE, in the order given, on one card, each in a
+    fresh (spawned) process that imports `repro_torch` from its checkout
+    alone and builds its kernels there.  The inputs are bf16 normal draws
+    from --seed at phase 5's real shapes (decode: q [B, Hq, D] against
+    the [B, 32768, Hkv, D] cache at kv_len = the prompt; prefill: batch 1,
+    the prompt's first PREFILL_REAL_S positions), the same in every run;
+    each kernel is held against its plain version before it is timed."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke --ab-attention: FAILED: CUDA is not available",
+              file=sys.stderr)
+        return 1
+    from repro_torch.configs.registry import LM_SHAPES, get_arch
+    cfg = get_arch(args.lm_arch).make_config()
+    shapes = (args.lm_batch, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+              LM_SHAPES["decode_32k"]["seq_len"], args.lm_prompt,
+              min(PREFILL_REAL_S, args.lm_prompt))
+    ctx = multiprocessing.get_context("spawn")
+    runs = []
+    for tree in args.ab_attention:
+        if not (Path(tree) / "src" / "repro_torch").is_dir():
+            print(f"chip_smoke --ab-attention: FAILED: {tree} holds no "
+                  f"src/repro_torch", file=sys.stderr)
+            return 1
+        recv, send = ctx.Pipe(duplex=False)
+        p = ctx.Process(target=_ab_attention_tree,
+                        args=(tree, shapes, args.seed, send))
+        p.start()
+        send.close()
+        res = recv.recv()
+        p.join()
+        if "error" in res:
+            print(f"chip_smoke --ab-attention: FAILED: {tree}: "
+                  f"{res['error']}", file=sys.stderr)
+            return 1
+        say("ab_attention", tree=tree, **{k: f"{v:.4f}" for k, v in res.items()})
+        runs.append({"tree": tree, **res})
+    print(json.dumps({"ab_attention": runs}), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--docs", type=int, default=6000)
@@ -1833,9 +1991,15 @@ def main(argv=None) -> int:
                     help="A/B the unranked main path of these checkouts "
                          "(run order, e.g. PARENT . . PARENT) instead of "
                          "the smoke run")
+    ap.add_argument("--ab-attention", nargs="+", metavar="TREE",
+                    help="A/B the two attention kernels of these checkouts "
+                         "at the LM path's real shapes instead of the "
+                         "smoke run")
     args = ap.parse_args(argv)
     if args.ab:
         return run_ab(args)
+    if args.ab_attention:
+        return run_ab_attention(args)
     try:
         device = run(args)
     except SmokeFailure as e:

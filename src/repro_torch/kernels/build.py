@@ -7,11 +7,12 @@ headers, so a build takes seconds):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of the source and flags, so an edited
-source is rebuilt and a stale library is never loaded.  Builds happen at
+The library name carries a hash of the source, the shared headers
+(`csrc/*.cuh`) and the flags, so an edited source is rebuilt and a stale
+library is never loaded.  Builds happen at
 first use (or all at once, in parallel, through `build_all`), never when a
 module is imported; the build directory `kernels/_build/` is git-ignored.
-Every C entry point returns `cudaGetLastError()` after its launch.
+Every launch entry point returns `cudaGetLastError()` after its launch.
 """
 from __future__ import annotations
 
@@ -33,23 +34,27 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _VP = ctypes.c_void_p
 _LL = ctypes.c_longlong
-# C signatures: pointers and the stream are c_void_p, sizes are 64-bit
+# The C entry points of each source, the launch first: pointers and the
+# stream are c_void_p, sizes are 64-bit
 SIGNATURES = {
-    "unpack": ("unpack_postings_launch",
-               (_VP, _LL, _VP, _LL, _VP, _LL, _VP, _VP, _VP, _VP)),
-    "intersect": ("banded_intersect_rows_launch",
-                  (_VP, _VP, _VP, _LL, _LL, _LL, _VP, _VP)),
-    "min_delta": ("banded_min_delta_rows_launch",
-                  (_VP, _VP, _VP, _VP, _LL, _LL, _LL, _VP, _VP)),
-    "delta_mask": ("banded_delta_mask_rows_launch",
-                   (_VP, _VP, _VP, _LL, _LL, _LL, _VP, _VP)),
-    "flash_decode": ("flash_decode_launch",
-                     (_VP, _VP, _VP, _VP, _VP, _LL, _LL, _LL, _LL, _LL, _LL,
-                      _VP)),
-    "flash_prefill": ("flash_prefill_launch",
-                      (_VP, _VP, _VP, _VP, _LL, _LL, _LL, _LL, _LL, _LL, _VP)),
-    "segment_bag": ("segment_bag_launch",
-                    (_VP, _LL, _LL, _VP, _VP, _LL, _LL, _VP, _LL, _VP)),
+    "unpack": {"unpack_postings_launch":
+               (_VP, _LL, _VP, _LL, _VP, _LL, _VP, _VP, _VP, _VP)},
+    "intersect": {"banded_intersect_rows_launch":
+                  (_VP, _VP, _VP, _LL, _LL, _LL, _VP, _VP)},
+    "min_delta": {"banded_min_delta_rows_launch":
+                  (_VP, _VP, _VP, _VP, _LL, _LL, _LL, _VP, _VP)},
+    "delta_mask": {"banded_delta_mask_rows_launch":
+                   (_VP, _VP, _VP, _LL, _LL, _LL, _VP, _VP)},
+    "flash_decode": {
+        "flash_decode_launch": (_VP, _VP, _VP, _VP, _VP, _VP, _LL, _LL, _LL,
+                                _LL, _LL, _LL, _LL, _LL, _VP),
+        "flash_decode_info": (_LL, _LL, _LL, _VP)},
+    "flash_prefill": {
+        "flash_prefill_launch": (_VP, _VP, _VP, _VP, _LL, _LL, _LL, _LL, _LL,
+                                 _LL, _VP),
+        "flash_prefill_info": (_LL, _LL, _VP)},
+    "segment_bag": {"segment_bag_launch":
+                    (_VP, _LL, _LL, _VP, _VP, _LL, _LL, _VP, _LL, _VP)},
 }
 
 
@@ -63,6 +68,7 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
 
@@ -101,13 +107,15 @@ def build_all() -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def load(name: str):
-    """The C entry point of kernel source `name`, building it if needed."""
+def load(name: str, entry: str | None = None):
+    """C entry point `entry` (default: the launch) of kernel source `name`,
+    building the library if needed."""
     job = _start_build(name)
     if job is not None:
         _finish_build(name, job)
     lib = ctypes.CDLL(str(library_path(name)))
-    fn_name, argtypes = SIGNATURES[name]
+    fn_name = entry or next(iter(SIGNATURES[name]))
+    argtypes = SIGNATURES[name][fn_name]
     fn = getattr(lib, fn_name)
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int

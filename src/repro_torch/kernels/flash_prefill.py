@@ -4,11 +4,15 @@ Replaces src/repro/kernels/flash_prefill.py::flash_prefill_pallas: causal
 GQA attention over a prompt, kv tiles above the diagonal skipped, online
 softmax with float32 state.  It takes q in the model's [B, S, Hq, D]
 layout (the reference reorders q into (q block, g, q) rows for the TPU).
-One CTA per 64-row q tile of one query head; its bound is arithmetic; see
-the source note in csrc/flash_prefill.cu.  The plain PyTorch version of
-the same function is `ops.flash_prefill_plain`.
+Its bound is arithmetic.  bfloat16 runs on the tensor cores (wgmma on
+TMA-loaded tiles, one CTA per 128-row q tile of one query head); float32
+on the CUDA cores (one CTA per 64-row q tile); see the source note in
+csrc/flash_prefill.cu.  The plain PyTorch version of the same function is
+`ops.flash_prefill_plain`.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -42,3 +46,20 @@ def flash_prefill_cuda(q: torch.Tensor, k: torch.Tensor,
 
 
 flash_prefill_cuda.launches = 0
+
+
+INFO_FIELDS = ("threads", "registers", "dynamic_smem_bytes", "stages",
+               "q_tile_rows", "kv_tile_rows", "local_bytes")
+
+
+def flash_prefill_info(D: int, dtype: torch.dtype) -> dict:
+    """The compiled kernel that a call with head dim D and `dtype` launches
+    (bfloat16: the wgmma route; float32: the CUDA-core route): threads per
+    CTA, registers and local (spill) bytes per thread as the runtime
+    reports them, its dynamic shared memory, K / V ring stages and tile
+    rows.  Needs the card."""
+    out = (ctypes.c_longlong * len(INFO_FIELDS))()
+    fn = build.load("flash_prefill", "flash_prefill_info")
+    build.check(fn(D, DTYPE_CODES[dtype], ctypes.addressof(out)),
+                "flash_prefill_info")
+    return dict(zip(INFO_FIELDS, out))
