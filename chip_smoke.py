@@ -6,6 +6,9 @@
     python3 chip_smoke.py --ab PARENT . . PARENT     # see run_ab
     python3 chip_smoke.py --ab-attention PARENT . . PARENT
                                                      # see run_ab_attention
+    python3 chip_smoke.py --ab-kernels PARENT . . PARENT
+                                                     # see run_ab_kernels
+    (each A/B runs each checkout in a spawned process: see ab_runs)
 
 Phases, each reported on its own lines:
 
@@ -16,10 +19,16 @@ Phases, each reported on its own lines:
    800 words, seeded) and its additional + ordinary indexes, built on the
    host and moved to the card;
 3. kernels — each search kernel against its plain PyTorch version on the
-   card, on seeded edge cases and on the largest inputs the main path
-   gives it, exact equality required (the unpack, banded-intersect,
-   min-delta and delta-mask kernels); times with CUDA events (L2 flushed
-   before each launch) beside the least time the card could take;
+   card, on seeded edge cases (for min delta also the fence's edge cases
+   of kernels/edge_cases.py, at row widths whose planned strides reach
+   every path of its search) and on the largest inputs the main path
+   gives it, exact
+   equality required (the unpack, banded-intersect, min-delta and
+   delta-mask kernels); times with CUDA events (L2 flushed before each
+   launch) beside the least time the card could take and a launch floor
+   (a one-element zero_() on the same timer); the min-delta kernel's
+   design at that input (fence, window, registers, spills, shared
+   memory);
 4. main path — the paper's query stream (phrase + every-other-word near
    queries of 3-5 words) in batches through `AdditionalIndexEngine(...,
    device="cuda").search_batch` and the `OrdinaryEngine` baseline, plus a
@@ -63,8 +72,11 @@ Phases, each reported on its own lines:
 7. recsys kernel — with the LM phases' memory handed back, the
    embedding-bag kernel against its plain version on seeded edge cases (D
    1 to 128, B = 1, F = 1, all-pad bags, ids past the table, sum and mean,
-   weighted or not, f32 and bf16; exact on unweighted f32 bags, else 2e-5
-   / one bf16 ulp of a row's scale) and at the real shapes (FM's
+   weighted or not, f32 and bf16, the tile edges of
+   kernels/edge_cases.py, also on ids off 16-byte boundaries, and a 4.6 GB
+   table; exact on unweighted f32 bags, else 2e-5 / one bf16 ulp of a
+   row's scale) and at the real shapes, each with its
+   tile and compiled resources (FM's
    [5349120, 10] table and [.., 1] linear term with serve_bulk ids, the
    table with the 1,000,000 retrieval rows, MIND's [1000000, 64] item
    table pooling 262144 histories of 50 with ~10% pads, mean and
@@ -114,6 +126,9 @@ INT_OPS_PER_S = 33.5e12        # 67 TFLOP/s f32 outside the tensor cores,
 FLOPS_PER_S = {"torch.bfloat16": 989e12,   # tensor cores, dense
                "torch.float32": 67e12}     # outside the tensor cores
 L2_FLUSH_BYTES = 256 << 20     # > the 50 MB L2: callers find the arena cold
+HOST_HEADSTART_CYCLES = 200_000  # ~0.1 ms of device spin before each timed
+                                 # call: longer than a kernel wrapper's host
+                                 # work on a loaded host
 SEGMENT = "corpus reduced from the paper's ~130k docs by host build time"
 LM_CUT = ("decode_32k (configs/registry.py: seq 32768, batch 128) with the "
           "batch cut to --lm-batch so that one card holds the bf16 cache; "
@@ -156,12 +171,16 @@ def say(tag, **kv):
 
 def time_cuda_ms(torch, fn, iters=20):
     """Mean device ms of `fn()` over `iters` launches, L2 flushed before
-    each one (CUDA events around the call only)."""
+    each one (CUDA events around the call only).  A spin of the device
+    after the flush gives the host a head start, so that a host slower
+    than the flush to enqueue `fn` never leaves the device idle between
+    the events."""
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     fn()
     total = 0.0
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(HOST_HEADSTART_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -519,6 +538,31 @@ def run(args) -> dict:
             "count": torch.cuda.device_count()}
 
 
+def search_batches(np, corpus, lex, ana, args):
+    """The main path's request batches from --seed: `batches` (1 warm-up
+    and --batches timed batches of the paper's stream), one stop-heavy near
+    batch, and the ranked and K-word kinds, one warm-up batch each before
+    their timed batches (`ranked`: three ranked batches of the paper's
+    stream; `kw`: a batch alternating unranked and ranked K-word requests,
+    then an unranked and a ranked one)."""
+    from repro_torch.core import SearchRequest
+    n_b, bs = args.batches, args.batch_size
+    stream = paper_stream(np, corpus, (n_b + 1) * bs, args.seed + 1)
+    batches = [[SearchRequest(q, mode=m) for q, m in stream[i * bs:(i + 1) * bs]]
+               for i in range(n_b + 1)]
+    stop_batch = [SearchRequest(q, mode=m) for q, m in
+                  stop_near_stream(np, corpus, lex, ana, bs, args.seed + 2)]
+    ranked = paper_stream(np, corpus, 3 * bs, args.seed + 3)
+    ranked = [[SearchRequest(q, mode=m, rank=True, top_k=10)
+               for q, m in ranked[i * bs:(i + 1) * bs]] for i in range(3)]
+    kw = kword_stream(np, corpus, lex, ana, 3 * bs, args.seed + 5)
+    ranks = [[j % 2 == 1 for j in range(bs)], [False] * bs, [True] * bs]
+    kw = [[SearchRequest(q, mode="kword", window=w, rank=rk)
+           for (q, w), rk in zip(kw[i * bs:(i + 1) * bs], ranks[i])]
+          for i in range(3)]
+    return batches, stop_batch, ranked, kw
+
+
 def search_phases(args, stack, np, torch, t_phase) -> list:
     """Phases 2-4 (index, search kernels, search main path); returns the
     four search kernels' entries of the `kernels` line."""
@@ -529,6 +573,9 @@ def search_phases(args, stack, np, torch, t_phase) -> list:
                                   make_lexicon_and_analyzer)
     from repro_torch.core.postings import BLOCK, PACK_WIDTHS, PackedPostings
     from repro_torch.kernels import ops
+    from repro_torch.kernels.edge_cases import (MD_EDGE_CASES, MD_EDGE_WIDTHS,
+                                                md_edge_case)
+    from repro_torch.kernels.intersect import banded_min_delta_rows_info
 
     # -- 2. index -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -541,23 +588,8 @@ def search_phases(args, stack, np, torch, t_phase) -> list:
     host_build_s = time.perf_counter() - t0
 
     n_b, bs = args.batches, args.batch_size
-    stream = paper_stream(np, corpus, (n_b + 1) * bs, args.seed + 1)
-    batches = [[SearchRequest(q, mode=m) for q, m in stream[i * bs:(i + 1) * bs]]
-               for i in range(n_b + 1)]
-    stop_batch = [SearchRequest(q, mode=m) for q, m in
-                  stop_near_stream(np, corpus, lex, ana, bs, args.seed + 2)]
-    # the ranked and K-word batch kinds: one warm-up batch each, then the
-    # timed batches of each kind
-    ranked = paper_stream(np, corpus, 3 * bs, args.seed + 3)
-    ranked = [[SearchRequest(q, mode=m, rank=True, top_k=10)
-               for q, m in ranked[i * bs:(i + 1) * bs]] for i in range(3)]
-    # K-word: a warm-up batch alternating unranked and ranked requests,
-    # then one unranked and one ranked batch
-    kw = kword_stream(np, corpus, lex, ana, 3 * bs, args.seed + 5)
-    ranks = [[j % 2 == 1 for j in range(bs)], [False] * bs, [True] * bs]
-    kw = [[SearchRequest(q, mode="kword", window=w, rank=rk)
-           for (q, w), rk in zip(kw[i * bs:(i + 1) * bs], ranks[i])]
-          for i in range(3)]
+    batches, stop_batch, ranked, kw = search_batches(np, corpus, lex, ana,
+                                                     args)
     warmups = [ranked[0], kw[0]]
     kinds = {
         "ranked": ranked[1:],
@@ -655,6 +687,12 @@ def search_phases(args, stack, np, torch, t_phase) -> list:
                                                 ops.SCORE_DELTA_BITS))
         cases["banded_min_delta_rows"].append([a, bk, bd, bands])
         cases["banded_delta_mask_rows"].append([a, bk, bands])
+    # the min-delta kernel's fence edge cases (kernels/edge_cases.py), at
+    # each case's widths: their planned strides reach every path of the
+    # search
+    cases["banded_min_delta_rows"] += [
+        [torch.from_numpy(x).cuda() for x in md_edge_case(n, pb)]
+        for n in MD_EDGE_CASES for pb in MD_EDGE_WIDTHS[n]]
     # (plain version, which outputs are hits) per row kernel
     plain = {"banded_intersect_rows": (ops.banded_intersect_rows_plain,
                                        lambda x: x),
@@ -700,6 +738,15 @@ def search_phases(args, stack, np, torch, t_phase) -> list:
             time_cuda_ms(torch, lambda: ops.banded_delta_mask_rows_plain(*dm)),
             bound_ms(*band_bound(torch, *dm, 4, walk=True, max_band=15))),
     }
+    one = torch.zeros(1, device="cuda")
+    say("launch_floor", ms=f"{time_cuda_ms(torch, one.zero_):.4f}",
+        what=json.dumps("a one-element zero_() on the kernels' timer"))
+    live = md[0] != ops.I32_SENTINEL
+    say("kernel_design", name="banded_min_delta_rows",
+        a=tuple(md[0].shape), bk=tuple(md[1].shape), live_a=int(live.sum()),
+        rows_with_live_a=int(live.any(1).sum()),
+        live_b_per_row=f"{float((md[1] != ops.I32_SENTINEL).sum(1).float().mean()):.1f}",
+        **banded_min_delta_rows_info(md[1].shape[1]))
     say("kernel_shapes", unpack_postings=tuple(idx_m.shape),
         banded_intersect_rows=f"a{tuple(a_m.shape)}b{tuple(b_m.shape)}",
         banded_min_delta_rows=f"a{tuple(md[0].shape)}b{tuple(md[1].shape)}",
@@ -1400,10 +1447,31 @@ def bag_ok(torch, got, want, exact):
 
 def bag_cases(np, torch, rng):
     """Seeded edge cases of the embedding-bag kernel: (table, ids, weights,
-    combine) on the card.  D in {1, 10, 16, 32, 64, 128}; B = 1 and F = 1;
-    ~10% pads, an all-pad bag, an id past the table; sum and mean; with
-    and without weights; float32 and bf16."""
+    combine) on the card.  The kernel's tile edges (kernels/edge_cases.py:
+    a ragged last tile, tiles off 16-byte boundaries, fields in stages, D
+    = 1, all-pad bags at tile edges) in float32 and bf16, and in float32
+    again with ids and weights as views 4 bytes past a 16-byte boundary;
+    a float32 table of 4.6 GB read past its first 4 GiB; then D in {1, 10,
+    16, 32, 64, 128}; B = 1 and F = 1; ~10% pads, an all-pad bag, an id
+    past the table; sum and mean; with and without weights; float32 and
+    bf16."""
+    from repro_torch.kernels.edge_cases import (BAG_EDGE_CASES, bag_edge_case,
+                                                bag_past_4gib, offset_view)
     cases = []
+    for name in BAG_EDGE_CASES:
+        table, ids, w, _ = bag_edge_case(name)
+        for dt in (torch.float32, torch.bfloat16):
+            cases.append((torch.from_numpy(table).to("cuda", dt),
+                          torch.from_numpy(ids).to("cuda"),
+                          None if w is None else torch.from_numpy(w).to("cuda"),
+                          "sum"))
+        t, i, w_, c = cases[-2]
+        cases.append((t, offset_view(i),
+                      None if w_ is None else offset_view(w_), c))
+    big, ids = bag_past_4gib("cuda")
+    check(bool((ids.long() * big.shape[1] * 4 >= 2**32).any()),
+          "the 4.6 GB bag case reads no row past 4 GiB")
+    cases.append((big, ids, None, "sum"))
     shapes = [(1, 1), (7, 13), (300, 39), (2, 50)]
     for i, D in enumerate((1, 10, 16, 32, 64, 128)):
         for dt in (torch.float32, torch.bfloat16):
@@ -1488,6 +1556,54 @@ def same_top(torch, idx, want_scores, tol=2e-5):
     return int(apart.sum()), int(equal[apart].sum()), int(equal.sum())
 
 
+def recsys_kernel_inputs(np, torch, seed, rng) -> dict:
+    """FM and MIND at full width on the card (random weights from `seed`,
+    in that order from one generator, `gen`), FM's ClickLog batches at
+    serve_p99, serve_bulk and retrieval_cand, MIND's log, and `real`: the
+    embedding bag's real shapes, name -> (table, int32 ids, weights,
+    combine) — FM's table and linear term over serve_bulk's ids, FM's
+    table over the 1,000,000 retrieval rows, MIND's item table pooling
+    serve_bulk's histories, by mean and with weights drawn from `rng`."""
+    from repro_torch.configs.registry import RECSYS_SHAPES, get_arch
+    from repro_torch.data.recsys_data import ClickLog
+    from repro_torch.models import recsys as rec
+    p99, bulk = (RECSYS_SHAPES[s]["batch"] for s in ("serve_p99", "serve_bulk"))
+    n_cand = RECSYS_SHAPES["retrieval_cand"]["n_candidates"]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    fm_cfg = get_arch("fm").make_config()
+    fm = rec.init_params(fm_cfg, gen, "cuda")
+    fm_log = ClickLog(fm_cfg.field_vocabs, item_vocab=fm_cfg.item_vocab,
+                      seq_len=fm_cfg.seq_len, seed=seed)
+    fm_batches = {"serve_p99": recsys_batch(torch, fm_log.ctr_batch(p99)),
+                  "serve_bulk": recsys_batch(torch, fm_log.ctr_batch(bulk)),
+                  "retrieval_cand": recsys_batch(
+                      torch, fm_log.retrieval_batch(1, n_cand))}
+    mind_cfg = get_arch("mind").make_config()
+    mind = rec.init_params(mind_cfg, gen, "cuda")
+    mind_log = ClickLog(mind_cfg.field_vocabs, item_vocab=mind_cfg.item_vocab,
+                        seq_len=mind_cfg.seq_len, seed=seed)
+    hist = torch.from_numpy(mind_log.seq_batch(bulk)["hist"]).to("cuda")
+
+    def rows32(batch_ids, cfg):
+        return (batch_ids.long() + cfg.field_offsets("cuda")[None]).int()
+
+    hw = torch.from_numpy(rng.normal(size=tuple(hist.shape)).astype(
+        np.float32)).to("cuda")
+    fm_bulk_rows = rows32(fm_batches["serve_bulk"]["ids"], fm_cfg)
+    ret = fm_batches["retrieval_cand"]
+    ret_ids = ret["ids"].expand(n_cand, -1).clone()
+    ret_ids[:, -1] = ret["cand"] % fm_cfg.field_vocabs[-1]
+    real = {
+        "fm_table_serve_bulk": (fm.table, fm_bulk_rows, None, "sum"),
+        "fm_w_lin_serve_bulk": (fm.w_lin, fm_bulk_rows, None, "sum"),
+        "fm_table_retrieval": (fm.table, rows32(ret_ids, fm_cfg), None, "sum"),
+        "mind_hist_mean": (mind.item_table, hist, None, "mean"),
+        "mind_hist_weighted": (mind.item_table, hist, hw, "sum")}
+    return {"gen": gen, "fm_cfg": fm_cfg, "fm": fm, "fm_batches": fm_batches,
+            "mind_cfg": mind_cfg, "mind": mind, "mind_log": mind_log,
+            "real": real}
+
+
 def recsys_phases(args, np, torch) -> list:
     """Phases 7-8: recsys serving.  The embedding-bag kernel against its
     plain version (seeded edge cases; at FM's and MIND's real shapes, timed
@@ -1501,6 +1617,8 @@ def recsys_phases(args, np, torch) -> list:
     from repro_torch.configs.registry import RECSYS_SHAPES, get_arch
     from repro_torch.data.recsys_data import ClickLog
     from repro_torch.kernels import ops
+    from repro_torch.kernels.segment_bag import (bag_tile, bag_vec,
+                                                 segment_bag_info)
     from repro_torch.launch.steps import (recsys_retrieval_step,
                                           recsys_serve_step)
     from repro_torch.models import recsys as rec
@@ -1556,22 +1674,15 @@ def recsys_phases(args, np, torch) -> list:
     del edge
     t_phase = phase_done("recsys_kernel_edge_cases", t_phase)
 
-    # the models whose tables the real shapes read, and their batches
-    gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    fm_cfg = get_arch("fm").make_config()
-    fm = rec.init_params(fm_cfg, gen, "cuda")
-    fm_log = ClickLog(fm_cfg.field_vocabs, item_vocab=fm_cfg.item_vocab,
-                      seq_len=fm_cfg.seq_len, seed=args.seed)
-    fm_batches = {"serve_p99": recsys_batch(torch, fm_log.ctr_batch(p99)),
-                  "serve_bulk": recsys_batch(torch, fm_log.ctr_batch(bulk)),
-                  "retrieval_cand": recsys_batch(
-                      torch, fm_log.retrieval_batch(1, n_cand))}
-    del fm_log
-    mind_cfg = get_arch("mind").make_config()
-    mind = rec.init_params(mind_cfg, gen, "cuda")
-    mind_log = ClickLog(mind_cfg.field_vocabs, item_vocab=mind_cfg.item_vocab,
-                        seq_len=mind_cfg.seq_len, seed=args.seed)
-    hist = torch.from_numpy(mind_log.seq_batch(bulk)["hist"]).to("cuda")
+    # the models whose tables the real shapes read, their batches, and
+    # the real shapes
+    m = recsys_kernel_inputs(np, torch, args.seed, rng)
+    fm_cfg, fm, fm_batches = m["fm_cfg"], m["fm"], m["fm_batches"]
+    mind_cfg, mind, mind_log, gen = (m["mind_cfg"], m["mind"],
+                                     m["mind_log"], m["gen"])
+    real = m["real"]
+    ret = fm_batches["retrieval_cand"]
+    del m
     torch.cuda.synchronize()
     say("recsys_models", fm_table=tuple(fm.table.shape),
         fm_w_lin=tuple(fm.w_lin.shape), mind_item_table=tuple(
@@ -1580,22 +1691,6 @@ def recsys_phases(args, np, torch) -> list:
     t_phase = phase_done("recsys_init", t_phase)
 
     # -- 7. ... at the real shapes -------------------------------------------
-    def rows32(batch_ids, cfg):
-        return (batch_ids.long() + cfg.field_offsets("cuda")[None]).int()
-
-    hw = torch.from_numpy(rng.normal(size=tuple(hist.shape)).astype(
-        np.float32)).to("cuda")
-    fm_bulk_rows = rows32(fm_batches["serve_bulk"]["ids"], fm_cfg)
-    ret = fm_batches["retrieval_cand"]
-    ret_ids = ret["ids"].expand(n_cand, -1).clone()
-    ret_ids[:, -1] = ret["cand"] % fm_cfg.field_vocabs[-1]
-    real = {    # name -> (table, int32 ids, weights, combine)
-        "fm_table_serve_bulk": (fm.table, fm_bulk_rows, None, "sum"),
-        "fm_w_lin_serve_bulk": (fm.w_lin, fm_bulk_rows, None, "sum"),
-        "fm_table_retrieval": (fm.table, rows32(ret_ids, fm_cfg), None, "sum"),
-        "mind_hist_mean": (mind.item_table, hist, None, "mean"),
-        "mind_hist_weighted": (mind.item_table, hist, hw, "sum")}
-    del ret_ids
     real_timing = {}
     for name, (table, ids, w, combine) in real.items():
         want = held(table, ids, w, combine)
@@ -1625,6 +1720,13 @@ def recsys_phases(args, np, torch) -> list:
                      FLOPS_PER_S["torch.float32"]),
             time_cuda_ms(torch, lib))
         ms, plain_ms, (b_ms, b_by), lib_ms = real_timing[name]
+        esize = table.element_size()
+        tile = bag_tile(ids.shape[0], ids.shape[1], table.shape[1], esize,
+                        w is not None, bag_vec(table.shape[1], esize,
+                                               table.data_ptr()))
+        say("kernel_design", name="segment_bag", shape=name,
+            **tile._asdict(), **segment_bag_info(table.dtype, tile,
+                                                 w is not None))
         say("recsys_kernel_shape", name=name, table=tuple(table.shape),
             ids=tuple(ids.shape), pads=int((~valid).sum()),
             weights=w is not None, combine=combine, ms=f"{ms:.4f}",
@@ -1632,7 +1734,7 @@ def recsys_phases(args, np, torch) -> list:
             embedding_bag_ms=f"{lib_ms:.4f}",
             embedding_bag_vs_plain=f"{lib_err:.3g}")
         del want, valid, lib_ids, lib_w
-    del real, hw, fm_bulk_rows
+    del real
     say("recsys_kernel_check", cases=n_cases, exact=n_exact,
         max_abs_err=f"{err:.4g}", controls=json.dumps(controls))
     torch.cuda.empty_cache()
@@ -1764,59 +1866,102 @@ def recsys_phases(args, np, torch) -> list:
 
 
 # ---------------------------------------------------------------------------
-# A/B of the unranked main path between checkouts (--ab)
+# A/B between checkouts (--ab, --ab-attention, --ab-kernels)
 # ---------------------------------------------------------------------------
 
-def _ab_run_tree(tree, blob, freeze, conn):
-    """One spawned run: `repro_torch` from `tree` only, then the batches."""
+def _ab_child(measure, tree, margs, conn):
+    """One spawned run: `repro_torch` from `tree` only, then
+    `measure(tree, *margs)`; its dict, or the error, goes back on `conn`."""
     try:
         sys.path.insert(0, str(Path(tree).resolve() / "src"))
-        import torch
-        from repro_torch.core import (AdditionalIndexEngine, OrdinaryEngine,
-                                      SearchRequest)
-        data = pickle.loads(blob)
-        index = data["index"]
-        batches = [[SearchRequest(q, mode=m) for q, m in b]
-                   for b in data["batches"]]
-        stop_batch = [SearchRequest(q, mode=m) for q, m in data["stop"]]
-        if freeze:
-            gc.collect()
-            gc.freeze()
-        out = {}
-        for name, cls in (("additional", AdditionalIndexEngine),
-                          ("ordinary", OrdinaryEngine)):
-            eng = cls(index, device="cuda")
-            ex = eng.batch_executor
-            eng.search_batch(batches[0])                  # warm-up
-            torch.cuda.synchronize()
-            for k in ex.timings:
-                ex.timings[k] = 0.0
-            lat, digest = [], hashlib.sha256()
-            for batch in batches[1:]:
-                t0 = time.perf_counter()
-                resp = eng.search_batch(batch)
-                torch.cuda.synchronize()
-                lat.append(time.perf_counter() - t0)
-                for r in resp:
-                    digest.update(r.doc.tobytes() + r.pos.tobytes()
-                                  + str(r.postings_read).encode())
-            split = dict(ex.timings)
-            t0 = time.perf_counter()
-            eng.search_batch(stop_batch)
-            torch.cuda.synchronize()
-            out[name] = {
-                "qps": len(lat) * len(batches[1]) / sum(lat),
-                "batch_p50_ms": percentile(lat, 50) * 1e3,
-                "batch_p99_ms": percentile(lat, 99) * 1e3,
-                "stop_near_batch_ms": (time.perf_counter() - t0) * 1e3,
-                **{f"{k}_s": v for k, v in split.items()},
-                "digest": digest.hexdigest()[:16]}
-            del eng, ex
-        conn.send(out)
+        conn.send(measure(tree, *margs))
     except BaseException as e:                      # reported by the parent
         conn.send({"error": f"{type(e).__name__}: {e}"})
     finally:
         conn.close()
+
+
+def ab_check_trees(trees):
+    """Fails unless the card is there and every tree holds the port."""
+    import torch
+    check(torch.cuda.is_available(), "CUDA is not available")
+    for tree in trees:
+        check((Path(tree) / "src" / "repro_torch").is_dir(),
+              f"{tree} holds no src/repro_torch")
+
+
+def ab_runs(trees, measure, *margs) -> list:
+    """`measure(tree, *margs)` of each checkout in `trees`, in the order
+    given, on one card, each in a fresh (spawned) process that imports
+    `repro_torch` from its checkout alone and builds its kernels there.
+    Returns [{"tree": tree, **result}, ...]; fails on the first run that
+    fails."""
+    ctx = multiprocessing.get_context("spawn")
+    runs = []
+    for tree in trees:
+        recv, send = ctx.Pipe(duplex=False)
+        p = ctx.Process(target=_ab_child, args=(measure, tree, margs, send))
+        p.start()
+        send.close()
+        try:
+            res = recv.recv()
+        except EOFError:
+            res = {"error": "the run died without a result"}
+        p.join()
+        check("error" not in res, f"{tree}: {res.get('error')}")
+        runs.append({"tree": tree, **res})
+    return runs
+
+
+def _fmt(r):
+    return {k: (f"{v:.4f}" if isinstance(v, float) else v)
+            for k, v in r.items()}
+
+
+def _ab_main_path(tree, blob, freeze):
+    """The unranked main path of `tree`'s engines (see run_ab)."""
+    import torch
+    from repro_torch.core import (AdditionalIndexEngine, OrdinaryEngine,
+                                  SearchRequest)
+    data = pickle.loads(blob)
+    index = data["index"]
+    batches = [[SearchRequest(q, mode=m) for q, m in b]
+               for b in data["batches"]]
+    stop_batch = [SearchRequest(q, mode=m) for q, m in data["stop"]]
+    if freeze:
+        gc.collect()
+        gc.freeze()
+    out = {}
+    for name, cls in (("additional", AdditionalIndexEngine),
+                      ("ordinary", OrdinaryEngine)):
+        eng = cls(index, device="cuda")
+        ex = eng.batch_executor
+        eng.search_batch(batches[0])                  # warm-up
+        torch.cuda.synchronize()
+        for k in ex.timings:
+            ex.timings[k] = 0.0
+        lat, digest = [], hashlib.sha256()
+        for batch in batches[1:]:
+            t0 = time.perf_counter()
+            resp = eng.search_batch(batch)
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t0)
+            for r in resp:
+                digest.update(r.doc.tobytes() + r.pos.tobytes()
+                              + str(r.postings_read).encode())
+        split = dict(ex.timings)
+        t0 = time.perf_counter()
+        eng.search_batch(stop_batch)
+        torch.cuda.synchronize()
+        out[name] = {
+            "qps": len(lat) * len(batches[1]) / sum(lat),
+            "batch_p50_ms": percentile(lat, 50) * 1e3,
+            "batch_p99_ms": percentile(lat, 99) * 1e3,
+            "stop_near_batch_ms": (time.perf_counter() - t0) * 1e3,
+            **{f"{k}_s": v for k, v in split.items()},
+            "digest": digest.hexdigest()[:16]}
+        del eng, ex
+    return out
 
 
 def run_ab(args) -> int:
@@ -1824,26 +1969,16 @@ def run_ab(args) -> int:
     the order given, on one card.  The corpus and index are built once, on
     the host, with the package beside this script (the index builder is
     the same code in every checkout of the port so far) and pickled; each
-    run then starts a fresh (spawned) process that imports `repro_torch`
-    from its checkout alone, unpickles the index into that checkout's
-    classes and drives what phase 4 drives for unranked requests: per
-    engine one warm-up batch, `--batches` timed batches of the paper's
-    stream and one stop-heavy near batch, reporting QPS, batch p50 / p99
-    and the executor's phase seconds.  The list runs once with
-    `gc.collect(); gc.freeze()` after set-up and once without, so every
-    checkout sees the same harness either way.  The answers (doc, pos,
-    postings_read per response) must agree across runs."""
+    run (`ab_runs`) unpickles the index into its checkout's classes and
+    drives what phase 4 drives for unranked requests: per engine one
+    warm-up batch, `--batches` timed batches of the paper's stream and one
+    stop-heavy near batch, reporting QPS, batch p50 / p99 and the
+    executor's phase seconds.  The list runs once with `gc.collect();
+    gc.freeze()` after set-up and once without, so every checkout sees the
+    same harness either way.  The answers (doc, pos, postings_read per
+    response) must agree across runs."""
     import numpy as np
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke --ab: FAILED: CUDA is not available",
-              file=sys.stderr)
-        return 1
-    for tree in args.ab:
-        if not (Path(tree) / "src" / "repro_torch").is_dir():
-            print(f"chip_smoke --ab: FAILED: {tree} holds no src/repro_torch",
-                  file=sys.stderr)
-            return 1
+    ab_check_trees(args.ab)
     from repro_torch.core import (CorpusConfig, LexiconConfig, build_all,
                                   generate_corpus, make_lexicon_and_analyzer)
 
@@ -1866,110 +2001,200 @@ def run_ab(args) -> int:
     say("ab_setup", docs=args.docs, pickle_bytes=len(blob),
         seconds=f"{time.perf_counter() - t0:.1f}")
 
-    ctx = multiprocessing.get_context("spawn")
     runs = []
     for freeze in (True, False):
-        for tree in args.ab:
-            recv, send = ctx.Pipe(duplex=False)
-            p = ctx.Process(target=_ab_run_tree,
-                            args=(tree, blob, freeze, send))
-            p.start()
-            send.close()
-            res = recv.recv()
-            p.join()
-            if "error" in res:
-                print(f"chip_smoke --ab: FAILED: {tree}: {res['error']}",
-                      file=sys.stderr)
-                return 1
-            for eng, r in res.items():
-                say("ab", tree=tree, gc_freeze=freeze, engine=eng,
-                    **{k: (f"{v:.4f}" if isinstance(v, float) else v)
-                       for k, v in r.items()})
-            runs.append({"tree": tree, "gc_freeze": freeze, **res})
+        for r in ab_runs(args.ab, _ab_main_path, blob, freeze):
+            for eng in ("additional", "ordinary"):
+                say("ab", tree=r["tree"], gc_freeze=freeze, engine=eng,
+                    **_fmt(r[eng]))
+            runs.append({"gc_freeze": freeze, **r})
+    print(json.dumps({"ab": runs}), flush=True)
     digests = {(eng, r[eng]["digest"]) for r in runs for eng in
                ("additional", "ordinary")}
-    print(json.dumps({"ab": runs}), flush=True)
-    if len(digests) != 2:
-        print("chip_smoke --ab: FAILED: answers differ across runs: "
-              f"{digests}", file=sys.stderr)
-        return 1
+    check(len(digests) == 2, f"answers differ across runs: {digests}")
     return 0
 
 
-def _ab_attention_tree(tree, shapes, seed, conn):
-    """One spawned run: `repro_torch` from `tree` only; its two attention
-    kernels on seeded inputs at the LM path's real shapes, each held
-    against its plain version, then timed."""
-    try:
-        sys.path.insert(0, str(Path(tree).resolve() / "src"))
-        import torch
-        from repro_torch.kernels import ops
-        gen = torch.Generator(device="cuda").manual_seed(seed)
+def _ab_attention(tree, shapes, seed):
+    """`tree`'s two attention kernels on seeded inputs at the LM path's
+    real shapes, each held against its plain version, then timed."""
+    import torch
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda").manual_seed(seed)
 
-        def randn(shape):
-            return torch.randn(shape, generator=gen,
-                               device="cuda").to(torch.bfloat16)
-        B, Hq, Hkv, D, S, P, S0 = shapes
-        q, k, v = randn((B, Hq, D)), randn((B, S, Hkv, D)), randn((B, S, Hkv, D))
-        kv_len = torch.full((B,), P, dtype=torch.int32, device="cuda")
-        hold(torch, f"{tree}: flash_decode != plain",
-             ops.flash_decode(q, k, v, kv_len),
-             ops.flash_decode_plain(q, k, v, kv_len))
-        out = {"flash_decode_ms": time_cuda_ms(
-            torch, lambda: ops.flash_decode(q, k, v, kv_len))}
-        del q, k, v
-        q, k, v = randn((1, S0, Hq, D)), randn((1, S0, Hkv, D)), randn((1, S0, Hkv, D))
-        hold(torch, f"{tree}: flash_prefill != plain",
-             ops.flash_prefill(q, k, v), ops.flash_prefill_plain(q, k, v))
-        out["flash_prefill_ms"] = time_cuda_ms(
-            torch, lambda: ops.flash_prefill(q, k, v))
-        conn.send(out)
-    except BaseException as e:                      # reported by the parent
-        conn.send({"error": f"{type(e).__name__}: {e}"})
-    finally:
-        conn.close()
+    def randn(shape):
+        return torch.randn(shape, generator=gen,
+                           device="cuda").to(torch.bfloat16)
+    B, Hq, Hkv, D, S, P, S0 = shapes
+    q, k, v = randn((B, Hq, D)), randn((B, S, Hkv, D)), randn((B, S, Hkv, D))
+    kv_len = torch.full((B,), P, dtype=torch.int32, device="cuda")
+    hold(torch, f"{tree}: flash_decode != plain",
+         ops.flash_decode(q, k, v, kv_len),
+         ops.flash_decode_plain(q, k, v, kv_len))
+    out = {"flash_decode_ms": time_cuda_ms(
+        torch, lambda: ops.flash_decode(q, k, v, kv_len))}
+    del q, k, v
+    q, k, v = randn((1, S0, Hq, D)), randn((1, S0, Hkv, D)), randn((1, S0, Hkv, D))
+    hold(torch, f"{tree}: flash_prefill != plain",
+         ops.flash_prefill(q, k, v), ops.flash_prefill_plain(q, k, v))
+    out["flash_prefill_ms"] = time_cuda_ms(
+        torch, lambda: ops.flash_prefill(q, k, v))
+    return out
 
 
 def run_ab_attention(args) -> int:
     """`--ab-attention TREE ...`: the flash-decode and flash-prefill kernels
-    of each checkout in TREE, in the order given, on one card, each in a
-    fresh (spawned) process that imports `repro_torch` from its checkout
-    alone and builds its kernels there.  The inputs are bf16 normal draws
+    of each checkout in TREE (`ab_runs`).  The inputs are bf16 normal draws
     from --seed at phase 5's real shapes (decode: q [B, Hq, D] against
     the [B, 32768, Hkv, D] cache at kv_len = the prompt; prefill: batch 1,
     the prompt's first PREFILL_REAL_S positions), the same in every run;
     each kernel is held against its plain version before it is timed."""
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke --ab-attention: FAILED: CUDA is not available",
-              file=sys.stderr)
-        return 1
+    ab_check_trees(args.ab_attention)
     from repro_torch.configs.registry import LM_SHAPES, get_arch
     cfg = get_arch(args.lm_arch).make_config()
     shapes = (args.lm_batch, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
               LM_SHAPES["decode_32k"]["seq_len"], args.lm_prompt,
               min(PREFILL_REAL_S, args.lm_prompt))
-    ctx = multiprocessing.get_context("spawn")
-    runs = []
-    for tree in args.ab_attention:
-        if not (Path(tree) / "src" / "repro_torch").is_dir():
-            print(f"chip_smoke --ab-attention: FAILED: {tree} holds no "
-                  f"src/repro_torch", file=sys.stderr)
-            return 1
-        recv, send = ctx.Pipe(duplex=False)
-        p = ctx.Process(target=_ab_attention_tree,
-                        args=(tree, shapes, args.seed, send))
-        p.start()
-        send.close()
-        res = recv.recv()
-        p.join()
-        if "error" in res:
-            print(f"chip_smoke --ab-attention: FAILED: {tree}: "
-                  f"{res['error']}", file=sys.stderr)
-            return 1
-        say("ab_attention", tree=tree, **{k: f"{v:.4f}" for k, v in res.items()})
-        runs.append({"tree": tree, **res})
+    runs = ab_runs(args.ab_attention, _ab_attention, shapes, args.seed)
+    for r in runs:
+        say("ab_attention", **_fmt(r))
     print(json.dumps({"ab_attention": runs}), flush=True)
+    return 0
+
+
+def _ab_kernels(tree, md_path, seed):
+    """`tree`'s min-delta kernel on the recorded main-path input at
+    `md_path` and its embedding-bag kernel at the recsys kernel phase's
+    real shapes (built from `seed` by this tree's own code), each held
+    against its plain version, then timed beside the launch floor; FM's
+    serve steps and the bag wrapper's host time per call."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import recsys_serve_step
+    out = {}
+    m = recsys_kernel_inputs(np, torch, seed, np.random.default_rng(seed))
+    real = m["real"]
+    digest = hashlib.sha256()
+    for name, (table, ids, w, combine) in real.items():
+        got = ops.segment_bag(table, ids, w, combine)
+        want = ops.segment_bag_plain(table, ids, w, combine)
+        check(bag_ok(torch, got, want, w is None
+                     and table.dtype == torch.float32),
+              f"{tree}: segment_bag != plain at {name}")
+        digest.update(want.cpu().numpy().tobytes())
+        out[f"segment_bag_{name}_ms"] = time_cuda_ms(
+            torch, lambda: ops.segment_bag(table, ids, w, combine))
+    # the same call with every bag reading one row per field (the batch's
+    # smallest id of each field): every row an L1 hit, so the time left is
+    # the ids' and sums' traffic and the arithmetic
+    table, ids, _, _ = real["fm_table_serve_bulk"]
+    hot = ids.min(dim=0, keepdim=True).values.expand_as(ids).contiguous()
+    check(torch.equal(ops.segment_bag(table, hot),
+                      ops.segment_bag_plain(table, hot)),
+          f"{tree}: segment_bag != plain at one row per field")
+    out["segment_bag_fm_table_one_row_per_field_ms"] = time_cuda_ms(
+        torch, lambda: ops.segment_bag(table, hot))
+    # the wrapper's host time per call at serve_p99 (200 calls enqueued
+    # back to back: the host, not the card, sets their pace) and FM's
+    # serve steps, p50 of the host's step times
+    fm, batches = m["fm"], m["fm_batches"]
+    p99_ids = (batches["serve_p99"]["ids"].long()
+               + m["fm_cfg"].field_offsets("cuda")[None]).int()
+    ops.segment_bag(fm.table, p99_ids)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        ops.segment_bag(fm.table, p99_ids)
+    torch.cuda.synchronize()
+    out["segment_bag_serve_p99_host_us"] = (time.perf_counter() - t0) / 200 * 1e6
+    for shape, reps in (("serve_p99", 30), ("serve_bulk", 5)):
+        _, secs = timed_steps(torch, recsys_serve_step, fm, batches[shape],
+                              reps)
+        out[f"fm_{shape}_step_p50_ms"] = percentile(secs, 50) * 1e3
+    del m, real, table, ids, hot, fm, batches
+    # min delta last, on a card the bag calls have kept busy: the kernel is
+    # a few dependent trips to memory, and its single readings in a fresh
+    # process move by a fifth; five readings each, beside five of the
+    # launch floor
+    md = [x.cuda() for x in torch.load(md_path)]
+    check(torch.equal(ops.banded_min_delta_rows(*md),
+                      ops.banded_min_delta_rows_plain(*md)),
+          f"{tree}: banded_min_delta_rows != plain")
+    one = torch.zeros(1, device="cuda")
+    floor, mdt = [], []
+    for _ in range(5):
+        floor.append(time_cuda_ms(torch, one.zero_))
+        mdt.append(time_cuda_ms(torch, lambda: ops.banded_min_delta_rows(*md)))
+    out["launch_floor_ms"] = percentile(floor, 50)
+    out["banded_min_delta_rows_ms"] = percentile(mdt, 50)
+    out["banded_min_delta_rows_ms_each"] = json.dumps(
+        [round(t, 5) for t in mdt])
+    out["digest"] = digest.hexdigest()[:16]
+    return out
+
+
+def run_ab_kernels(args) -> int:
+    """`--ab-kernels TREE ...`: the min-delta and embedding-bag kernels of
+    each checkout in TREE (`ab_runs`).  The min-delta input is the one
+    phase 3 times: the largest call of the search warm-up batches,
+    recorded here once (index of --docs documents, built with the package
+    beside this script) and handed to every run; the bag inputs are the
+    recsys kernel phase's real shapes from --seed, which every run builds
+    with its own code (the plain version's sums must agree across runs),
+    and FM's serve_bulk call once more with every bag reading one row per
+    field (no gather misses: what is left is the ids' and sums' traffic);
+    then the bag wrapper's host time per call at serve_p99 and FM's
+    serve_p99 and serve_bulk step p50; then the min-delta kernel and the
+    launch floor five times each, in turns (medians, and each min-delta
+    reading).  Each kernel is held against its plain version before it is
+    timed."""
+    import numpy as np
+    import torch
+    ab_check_trees(args.ab_kernels)
+    import tempfile
+
+    import repro_torch.core.batch_executor as bx
+    from repro_torch.core import (AdditionalIndexEngine, CorpusConfig,
+                                  LexiconConfig, build_all, generate_corpus,
+                                  make_lexicon_and_analyzer)
+    t0 = time.perf_counter()
+    lc = LexiconConfig(seed=args.seed)
+    lex, ana = make_lexicon_and_analyzer(lc)
+    corpus = generate_corpus(lc, CorpusConfig(n_docs=args.docs,
+                                              mean_doc_len=800.0,
+                                              seed=args.seed))
+    index = build_all(corpus, lex, ana)
+    batches, _, ranked, kw = search_batches(np, corpus, lex, ana, args)
+    rec = Recorder(bx.banded_min_delta_rows,
+                   lambda a, bk, bd, bands: a.numel() + bk.numel())
+    bx.banded_min_delta_rows = rec
+    try:
+        eng = AdditionalIndexEngine(index, device="cuda")
+        for batch in (batches[0], ranked[0], kw[0]):
+            eng.search_batch(batch)
+    finally:
+        bx.banded_min_delta_rows = rec.fn
+    check(rec.best is not None, "the warm-up batches never reached min delta")
+    tmp = tempfile.mkdtemp()
+    md_path = os.path.join(tmp, "min_delta.pt")
+    torch.save([x.cpu() for x in rec.best], md_path)
+    say("ab_kernels_setup", docs=args.docs,
+        min_delta=f"a{tuple(rec.best[0].shape)}b{tuple(rec.best[1].shape)}",
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    del eng, index, corpus, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        runs = ab_runs(args.ab_kernels, _ab_kernels, md_path, args.seed)
+    finally:
+        os.unlink(md_path)
+        os.rmdir(tmp)
+    for r in runs:
+        say("ab_kernels", **_fmt(r))
+    print(json.dumps({"ab_kernels": runs}), flush=True)
+    check(len({r["digest"] for r in runs}) == 1,
+          "the bag inputs differ across runs")
     return 0
 
 
@@ -1995,11 +2220,20 @@ def main(argv=None) -> int:
                     help="A/B the two attention kernels of these checkouts "
                          "at the LM path's real shapes instead of the "
                          "smoke run")
+    ap.add_argument("--ab-kernels", nargs="+", metavar="TREE",
+                    help="A/B the min-delta and embedding-bag kernels of "
+                         "these checkouts at their real shapes instead of "
+                         "the smoke run")
     args = ap.parse_args(argv)
-    if args.ab:
-        return run_ab(args)
-    if args.ab_attention:
-        return run_ab_attention(args)
+    for flag, mode in (("ab", run_ab), ("ab_attention", run_ab_attention),
+                       ("ab_kernels", run_ab_kernels)):
+        if getattr(args, flag):
+            try:
+                return mode(args)
+            except SmokeFailure as e:
+                print(f"chip_smoke --{flag.replace('_', '-')}: FAILED: {e}",
+                      file=sys.stderr)
+                return 1
     try:
         device = run(args)
     except SmokeFailure as e:

@@ -42,7 +42,8 @@ SIGNATURES = {
     "intersect": {"banded_intersect_rows_launch":
                   (_VP, _VP, _VP, _LL, _LL, _LL, _VP, _VP)},
     "min_delta": {"banded_min_delta_rows_launch":
-                  (_VP, _VP, _VP, _VP, _LL, _LL, _LL, _VP, _VP)},
+                  (_VP, _VP, _VP, _VP, _LL, _LL, _LL, _LL, _VP, _VP),
+                  "banded_min_delta_rows_info": (_LL, _VP)},
     "delta_mask": {"banded_delta_mask_rows_launch":
                    (_VP, _VP, _VP, _LL, _LL, _LL, _VP, _VP)},
     "flash_decode": {
@@ -54,7 +55,9 @@ SIGNATURES = {
                                  _LL, _VP),
         "flash_prefill_info": (_LL, _LL, _VP)},
     "segment_bag": {"segment_bag_launch":
-                    (_VP, _LL, _LL, _VP, _VP, _LL, _LL, _VP, _LL, _VP)},
+                    (_VP, _LL, _LL, _VP, _VP, _LL, _LL, _VP, _LL, _LL, _LL,
+                     _LL, _LL, _LL, _VP),
+                    "segment_bag_info": (_LL, _LL, _LL, _LL, _LL, _VP)},
 }
 
 

@@ -14,15 +14,36 @@ They replace the three row kernels of src/repro/kernels/intersect.py:
   N * (8 * Pa + 4 * Pb) bytes.
 
 Each launches one thread per `a` element, which runs a lower-bound search
-of its row of `b` and a short forward walk; see the source notes in csrc/
-for the designs, and the `*_plain` functions of `ops` for the plain
-PyTorch versions of the same functions.
+of its row of `b` and a short forward walk; the min-delta kernel copies a
+fence of every s-th key of its row into shared memory (`fence_stride`
+plans s), then a sub-fence and one window of the row, each in one round of
+copies.
+See the source notes in csrc/ for the designs, and the `*_plain`
+functions of `ops` for the plain PyTorch versions of the same functions.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from repro_torch.kernels import build
+
+FENCE_KEYS = 16            # the min-delta fence's keys a row: s = 1024 at
+                           # Pb = 16384 (measured against 32-256 keys)
+FENCE_MIN_STRIDE = 64      # the window's width: a shorter segment needs no
+                           # denser fence
+
+
+def fence_stride(pb: int) -> int:
+    """The min-delta kernel's fence stride s for rows of `pb` keys: the
+    smallest power of two >= FENCE_MIN_STRIDE that keeps the fence within
+    FENCE_KEYS keys.  The kernel builds no fence when pb <= s (its
+    sub-fence and window then cover the row)."""
+    s = FENCE_MIN_STRIDE
+    while -(-pb // s) > FENCE_KEYS:
+        s *= 2
+    return s
 
 
 def _check_rows(a: torch.Tensor, bands: torch.Tensor, **bs: torch.Tensor):
@@ -73,16 +94,17 @@ def banded_min_delta_rows_cuda(a: torch.Tensor, bk: torch.Tensor,
     """out[n, i] = min over j with |a[n, i] - bk[n, j]| <= bands[n] of
     (|a[n, i] - bk[n, j]| + bd[n, j]), the int32 sentinel where no j is in
     band or a[n, i] is the sentinel; a [N, Pa], bk and bd [N, Pb] with bk
-    ascending per row and bd >= 0, bands [N], all int32 on the card.
-    Returns int32 [N, Pa].  Adds one to `banded_min_delta_rows_cuda.launches`
-    per kernel launch."""
+    ascending per row and bd >= 0, bands [N], all int32 on the card; the
+    fence stride is `fence_stride(Pb)`.  Returns int32 [N, Pa].  Adds one
+    to `banded_min_delta_rows_cuda.launches` per kernel launch."""
     a, bands, bk, bd = _check_rows(a, bands, bk=bk, bd=bd)
     N, pa = a.shape
     out = torch.empty((N, pa), dtype=torch.int32, device=a.device)
     if N * pa:
+        pb = bk.shape[1]
         fn = build.load("min_delta")
         err = fn(a.data_ptr(), bk.data_ptr(), bd.data_ptr(), bands.data_ptr(),
-                 N, pa, bk.shape[1], out.data_ptr(),
+                 N, pa, pb, fence_stride(pb), out.data_ptr(),
                  torch.cuda.current_stream(a.device).cuda_stream)
         build.check(err, "banded_min_delta_rows")
         banded_min_delta_rows_cuda.launches += 1
@@ -112,3 +134,21 @@ def banded_delta_mask_rows_cuda(a: torch.Tensor, b_sorted: torch.Tensor,
 banded_intersect_rows_cuda.launches = 0
 banded_min_delta_rows_cuda.launches = 0
 banded_delta_mask_rows_cuda.launches = 0
+
+MIN_DELTA_INFO_FIELDS = ("threads", "registers", "local_bytes",
+                         "dynamic_smem_bytes", "window", "sub_fence_keys",
+                         "int4_window")
+
+
+def banded_min_delta_rows_info(pb: int) -> dict:
+    """The compiled min-delta kernel that rows of `pb` keys launch: its
+    fence stride and keys (`fence_stride`), threads per CTA, registers and
+    local (spill) bytes per thread as the runtime reports them, its shared
+    memory, the window's entries, the sub-fence's keys and whether the
+    window is copied in 16-byte chunks.  Needs the card."""
+    s = fence_stride(pb)
+    out = (ctypes.c_longlong * len(MIN_DELTA_INFO_FIELDS))()
+    fn = build.load("min_delta", "banded_min_delta_rows_info")
+    build.check(fn(pb, ctypes.addressof(out)), "banded_min_delta_rows_info")
+    return {"fence_stride": s, "fence_keys": -(-pb // s) if pb > s else 0,
+            **dict(zip(MIN_DELTA_INFO_FIELDS, out))}

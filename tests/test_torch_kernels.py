@@ -19,6 +19,10 @@ import torch
 from repro_torch.core.batch_executor import BatchDeviceIndex
 from repro_torch.core.postings import BLOCK, PACK_WIDTHS, PackedPostings
 from repro_torch.kernels import ops
+from repro_torch.kernels.edge_cases import (BAG_EDGE_CASES, MD_EDGE_CASES,
+                                            MD_EDGE_WIDTHS, bag_edge_case,
+                                            bag_past_4gib, md_edge_case,
+                                            md_sub_stride, offset_view)
 
 I32_MAX = np.iinfo(np.int32).max
 SDB, SDM = ops.SCORE_DELTA_BITS, ops.SCORE_DELTA_MASK   # (key, delta) layout
@@ -295,6 +299,124 @@ def test_min_delta_plain_edge_rows(ref):
     assert got[2, :2].tolist() == [0, I32_MAX]           # band 0
 
 
+# ---------------------------------------------------------------------------
+# min delta: the fence search's edge cases.  The min-delta kernel searches
+# a fence of every s-th key of its row (s = fence_stride(pb)) in shared
+# memory, then one window of the row; these rows put runs, probes and row
+# widths where that search has its edges (kernels/edge_cases.py, shared
+# with chip_smoke.py).  Here the plain version against
+# the Pallas kernel (which wants widths of 128: a and b are padded with
+# sentinels for it, pads that no probe reaches); on the card the kernel
+# against the plain version at each case's widths, whose planned strides
+# reach every path of the search.
+# ---------------------------------------------------------------------------
+
+def _pad128(x, fill):
+    return np.pad(x, ((0, 0), (0, -x.shape[1] % 128)), constant_values=fill)
+
+
+@pytest.mark.parametrize("name", MD_EDGE_CASES)
+def test_min_delta_plain_fence_edge_cases_match_pallas(ref, name):
+    a, bk, bd, bands = md_edge_case(name)
+    want = _ref_min_delta(ref, _pad128(a, I32_MAX), _pad128(bk, I32_MAX),
+                          _pad128(bd, 0), bands, "pallas")[:, :a.shape[1]]
+    got = ops.banded_min_delta_rows_plain(*map(torch.from_numpy,
+                                               (a, bk, bd, bands))).numpy()
+    assert np.array_equal(got, want)
+    hit = want != I32_MAX
+    assert hit.any() and not hit.all()
+    for r in range(4):                  # every band finds and misses
+        if (a[r] != I32_MAX).any() and (bk[r] != I32_MAX).sum() > 1:
+            assert hit[r].any() and not hit[r].all(), (name, r)
+    if name == "all_sentinel_row":
+        assert (want[1] == I32_MAX).all() and (want[2] == I32_MAX).all()
+
+
+def test_min_delta_edge_cases_hold_their_edges():
+    """Each case puts what its name says where the planned fence has its
+    edges, at each of its widths, and the widths' planned strides reach
+    every path of the kernel's search: no fence, a fence whose segments
+    are one window, a sub-fence, and binary steps past the sub-fence."""
+    from repro_torch.kernels.edge_cases import MD_WINDOW
+    from repro_torch.kernels.intersect import fence_stride
+    paths = set()
+    for name, widths in MD_EDGE_WIDTHS.items():
+        for pb in widths:
+            a, bk, bd, bands = md_edge_case(name, pb)
+            s = fence_stride(pb)
+            assert bk.shape == bd.shape == (4, pb) and a.shape == (4, 128)
+            paths.add("no fence" if pb <= s else "window" if s <= MD_WINDOW
+                      else "sub-fence" if md_sub_stride(s) <= MD_WINDOW
+                      else "binary steps")
+            if name == "pb_not_stride_multiple":
+                assert pb % s and pb > s
+            if name == "pb_within_one_stride":
+                assert pb <= s
+            if name == "run_straddles_fence":
+                s2 = md_sub_stride(s)
+                for r in range(4):
+                    for j in (s, 2 * s, 3 * s, s + s2, s + MD_WINDOW):
+                        assert bk[r, j - 1] == bk[r, j] == bk[r, j + 1]
+            if name == "key_equals_fence_key":
+                for r in range(4):
+                    fence = set(bk[r, ::s].tolist()) - {I32_MAX}
+                    assert fence <= set(a[r].tolist())
+                    assert fence <= set((a[r].astype(np.int64)
+                                         - bands[r]).tolist())
+            if name == "unsorted_a_segments":
+                live = a != I32_MAX
+                assert (~live).any(axis=1).all()
+                assert (np.diff(np.where(live, a, -1).astype(np.int64),
+                                axis=1) < 0).any()
+            if name == "all_sentinel_row":
+                assert (a[1] == I32_MAX).all() and (bk[2] == I32_MAX).all()
+    assert paths == {"no fence", "window", "sub-fence", "binary steps"}
+
+
+def test_fence_stride_plan():
+    """A power of two >= 32 whose fence fits the kernel's 1024 keys (the
+    planner keeps it to FENCE_KEYS), for every row width from 1 to 2^20;
+    no fence (pb <= s) for rows of one window."""
+    from repro_torch.kernels.intersect import (FENCE_KEYS, FENCE_MIN_STRIDE,
+                                               fence_stride)
+    assert FENCE_KEYS <= 1024
+    last = 0
+    for pb in range(1, (1 << 20) + 1):
+        s = fence_stride(pb)
+        if s != last:
+            assert s >= 32 and s & (s - 1) == 0 and s >= last
+            last = s
+        assert -(-pb // s) <= FENCE_KEYS
+    assert fence_stride(FENCE_MIN_STRIDE) == FENCE_MIN_STRIDE
+    assert fence_stride(16384) == 16384 // FENCE_KEYS
+    assert fence_stride(1 << 20) == (1 << 20) // FENCE_KEYS
+
+
+@pytest.mark.parametrize("elem_size", [4, 2])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_bag_tile_plan(elem_size, weighted):
+    """Every bag in exactly one tile, every column in one group, threads a
+    multiple of 32 covering the tile, the shared memory within the budget,
+    at F <= 64 and D <= 128."""
+    from repro_torch.kernels.segment_bag import (BAG_SMEM_BUDGET,
+                                                 BAG_LOADS_IN_FLIGHT, bag_tile)
+    for D in range(1, 129):
+        for vec in (v for v in (1, 2, 4) if D % v == 0):
+            for F in (0, 1, 7, 13, 39, 50, 64):
+                for B in (1, 2, 53, 256, 1001):
+                    t = bag_tile(B, F, D, elem_size, weighted, vec)
+                    starts = range(0, B, t.bags)
+                    covered = [b for s in starts
+                               for b in range(s, min(B, s + t.bags))]
+                    assert covered == list(range(B))
+                    assert t.groups * -(-(D // vec) // t.groups) >= D // vec
+                    assert t.bags * t.groups <= t.threads <= 256
+                    assert t.threads % 32 == 0 and t.vec == vec
+                    assert t.smem_bytes <= BAG_SMEM_BUDGET
+                    assert t.fields >= F or (
+                        t.fields % BAG_LOADS_IN_FLIGHT == 0 and t.fields > 0)
+
+
 def _ref_delta_mask(ref, a, b, bands):
     jnp = ref["jnp"]
     return np.asarray(ref["ops"].banded_delta_mask_rows(
@@ -387,6 +509,31 @@ def test_scoring_dispatch_takes_plain_version_on_cpu():
 
 
 # ---------------------------------------------------------------------------
+# the embedding bag's tile edges (kernels/edge_cases.py, shared with
+# chip_smoke.py; tests/test_torch_recsys.py holds the plain version against
+# the reference on these, the card tests below the kernel against the
+# plain version)
+# ---------------------------------------------------------------------------
+
+def test_bag_edge_cases_hold_their_edges():
+    for name in BAG_EDGE_CASES:
+        table, ids, _, t = bag_edge_case(name)
+        B, F = ids.shape
+        if name == "ragged_last_tile":
+            assert B % t.bags and B > t.bags
+        if name == "odd_F_unaligned_tiles":
+            assert F % 2 and (t.bags * F * 4) % 16
+        if name == "F_past_one_stage":
+            assert t.fields < F and F % t.fields    # the last stage short
+        if name == "D_1":
+            assert table.shape[1] == 1
+        if name == "all_pad_bags_at_tile_edges":
+            edges = [b for s in range(0, B, t.bags)
+                     for b in (s, min(B, s + t.bags) - 1)]
+            assert len(edges) >= 4 and (ids[edges] < 0).all()
+
+
+# ---------------------------------------------------------------------------
 # on the card: each CUDA kernel against its plain version
 # ---------------------------------------------------------------------------
 
@@ -423,6 +570,41 @@ def test_min_delta_kernel_matches_plain_on_card(cuda_device, pa, pb):
     want = ops.banded_min_delta_rows_plain(a, bk, bd, bands)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name,pb", [(n, pb) for n in MD_EDGE_CASES
+                                     for pb in MD_EDGE_WIDTHS[n]])
+def test_min_delta_kernel_fence_edge_cases_on_card(cuda_device, name, pb):
+    """The fence's edge cases at each of their widths, whose planned
+    strides reach every path of the search (no fence, one window per
+    segment, a sub-fence, binary steps past it); exact equality."""
+    a, bk, bd, bands = (torch.from_numpy(x).to(cuda_device)
+                        for x in md_edge_case(name, pb))
+    before = ops.banded_min_delta_rows_cuda.launches
+    got = ops.banded_min_delta_rows_cuda(a, bk, bd, bands)
+    want = ops.banded_min_delta_rows_plain(a, bk, bd, bands)
+    torch.cuda.synchronize()
+    assert ops.banded_min_delta_rows_cuda.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("pb", [1024, 4096, 32768])
+def test_min_delta_kernel_odd_width_and_offset_rows_on_card(cuda_device, pb):
+    """Rows whose width is no multiple of 4 and planes that start off a
+    16-byte boundary take the scalar window, at widths whose planned
+    strides search one window, a sub-fence and binary steps."""
+    rng = np.random.default_rng(17 + pb)
+    a, bk, bd, bands = _scored_rows(rng, 8, 128, pb)
+    for w in (pb - 23, pb - 1):
+        args = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda_device)
+                for x in (a, bk[:, :w], bd[:, :w], bands)]
+        got = ops.banded_min_delta_rows_cuda(*args)
+        assert torch.equal(got, ops.banded_min_delta_rows_plain(*args))
+    args = [torch.from_numpy(x).to(cuda_device) for x in (a, bk, bd, bands)]
+    args[1] = offset_view(args[1])
+    assert args[1].data_ptr() % 16 == 4
+    got = ops.banded_min_delta_rows_cuda(*args)
+    assert torch.equal(got, ops.banded_min_delta_rows_plain(*args))
 
 
 @pytest.mark.parametrize("pa,pb", [(128, 128), (1024, 32768)])
@@ -578,3 +760,41 @@ def test_segment_bag_kernel_matches_plain_on_card(cuda_device, B, F, V, D,
         assert torch.equal(got, want)
     else:
         assert float((got.float() - want.float()).abs().max()) < 5e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", BAG_EDGE_CASES)
+def test_segment_bag_kernel_edge_cases_on_card(cuda_device, name, dtype):
+    """The tile edge cases at the planned tile, with ids and weights as
+    given and as views 4 bytes past a 16-byte boundary (the staged run's
+    head and tail by plain loads): equal to the plain version in float32
+    (weighted too: the same products and adds), to 5e-2 in bf16."""
+    table, ids, w, _ = bag_edge_case(name)
+    table = torch.from_numpy(table).to(cuda_device, dtype)
+    ids = torch.from_numpy(ids).to(cuda_device)
+    w = None if w is None else torch.from_numpy(w).to(cuda_device, dtype)
+    want = ops.segment_bag_plain(table, ids, w)
+    for ids_c, w_c in ((ids, w), (offset_view(ids),
+                                  None if w is None else offset_view(w))):
+        assert ids_c.data_ptr() % 16 in (0, 4)
+        before = ops.segment_bag_cuda.launches
+        got = ops.segment_bag(table, ids_c, w_c)
+        torch.cuda.synchronize()
+        assert ops.segment_bag_cuda.launches == before + 1
+        if dtype == torch.float32:
+            assert torch.equal(got, want)
+        else:
+            assert float((got.float() - want.float()).abs().max()) < 5e-2
+
+
+def test_segment_bag_kernel_table_past_4_gib_on_card(cuda_device):
+    """A float32 table of 4.6 GB, bags that read rows past its first 4 GiB
+    (and ids past the table): equal to the plain version."""
+    table, ids = bag_past_4gib(cuda_device)
+    D = table.shape[1]
+    assert table.numel() * 4 > 2**32
+    assert bool((ids.long() * D * 4 >= 2**32).any())
+    got = ops.segment_bag(table, ids)
+    want = ops.segment_bag_plain(table, ids)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

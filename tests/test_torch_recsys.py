@@ -32,6 +32,8 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch.steps import (recsys_retrieval_step,  # noqa: E402
                                       recsys_serve_step)
 from repro_torch.models import recsys as rec  # noqa: E402
+from repro_torch.kernels.edge_cases import (BAG_EDGE_CASES,  # noqa: E402
+                                            bag_edge_case)
 
 TOL = {np.float32: 2e-5, "bf16": 5e-2}
 DTYPES = {np.float32: (jnp.float32, torch.float32),
@@ -108,6 +110,27 @@ def test_segment_bag_plain_adds_fields_in_order():
     want = ref_ops.segment_bag(jnp.asarray(table.numpy()),
                                jnp.asarray(ids.numpy()))
     assert np.array_equal(np.asarray(want), got.numpy())
+
+
+@pytest.mark.parametrize("name", BAG_EDGE_CASES)
+def test_segment_bag_plain_tile_edge_cases_match_reference(name):
+    """The embedding-bag kernel's tile edges (a ragged last tile, tiles off
+    16-byte boundaries, fields past one stage, D = 1, all-pad bags at tile
+    edges; `kernels/edge_cases.py::bag_edge_case`): the plain version
+    against the reference's `ref` path to 2e-5, sum and mean, all-pad bags
+    exactly zero."""
+    table, ids, w, _ = bag_edge_case(name)
+    tt, it = torch.from_numpy(table), torch.from_numpy(ids)
+    wt = None if w is None else torch.from_numpy(w)
+    pads = (ids < 0).all(axis=1)
+    assert pads.any()
+    for combine in ("sum", "mean"):
+        got = ops.segment_bag(tt, it, wt, combine)
+        want = ref_ops.segment_bag(jnp.asarray(table), jnp.asarray(ids),
+                                   None if w is None else jnp.asarray(w),
+                                   combine, implementation="ref")
+        assert _err(want, got) < TOL[np.float32], combine
+        assert float(got[torch.from_numpy(pads)].abs().max()) == 0.0
 
 
 def test_segment_bag_on_cpu_takes_plain_version_and_checks_args():
