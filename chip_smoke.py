@@ -21,14 +21,17 @@ Phases, each reported on its own lines:
 3. kernels — each search kernel against its plain PyTorch version on the
    card, on seeded edge cases (for min delta also the fence's edge cases
    of kernels/edge_cases.py, at row widths whose planned strides reach
-   every path of its search) and on the largest inputs the main path
-   gives it, exact
-   equality required (the unpack, banded-intersect, min-delta and
-   delta-mask kernels); times with CUDA events (L2 flushed before each
-   launch) beside the least time the card could take and a launch floor
-   (a one-element zero_() on the same timer); the min-delta kernel's
-   design at that input (fence, window, registers, spills, shared
-   memory);
+   every path of its search; for intersect and delta mask the regime edge
+   cases there, at widths that reach the staged row and the fence) and
+   on the largest inputs the main path gives it, exact equality required
+   (the unpack,
+   banded-intersect, min-delta and delta-mask kernels; the delta-mask
+   launch on both its outputs, the mask and its window scan against
+   `delta_mask_t_bits` of the plain mask); times with CUDA events (L2
+   flushed before each launch) beside the least time the card could take
+   and a launch floor (a one-element zero_() on the same timer); the
+   min-delta, intersect and delta-mask kernels' designs at those inputs
+   (regime, fence, window, registers, spills, shared memory);
 4. main path — the paper's query stream (phrase + every-other-word near
    queries of 3-5 words) in batches through `AdditionalIndexEngine(...,
    device="cuda").search_batch` and the `OrdinaryEngine` baseline, plus a
@@ -39,7 +42,10 @@ Phases, each reported on its own lines:
    ranked).  Every response is checked field by field (scores included)
    against the same engine on the CPU; the first 16 unranked ones and the
    first 8 of every new batch against the brute-force oracles; all four
-   kernels' launch counters must rise in this phase;
+   kernels' launch counters must rise in this phase; every intersect and
+   delta-mask call of the phase is logged (no copies, no launches) and
+   printed as a `kernel_calls` histogram of its b width, a width and band
+   and its share of sentinel a entries;
 5. LM kernels — with the search phases' memory handed back, `--lm-arch`
    (llama3-8b) at full width in bf16 with random weights from --seed; each
    kernel's design at the path's shapes (the decode's split of the cache;
@@ -465,19 +471,77 @@ def oracle_mismatch(r, resp, want, rtol=1e-4) -> bool:
 
 class Recorder:
     """Wraps a kernel entry point of the batch executor and keeps a copy of
-    the inputs of its largest call (used only before the main path run)."""
+    the inputs of its largest call, and of the largest call of each b
+    width (used only before the main path run)."""
 
     def __init__(self, fn, size):
         self.fn, self.size, self.best, self.best_size = fn, size, None, -1
+        self.by_pb = {}            # Pb -> (calls, size, inputs of largest)
 
     def __call__(self, *args):
         s = self.size(*args)
-        if s > self.best_size:
-            self.best_size = s
+        # the b width of a row kernel's call (unpack's arena is a dict)
+        pb = None if isinstance(args[0], dict) else args[1].shape[1]
+        n, s_pb, kept = self.by_pb.get(pb, (0, -1, None))
+        if s > s_pb or s > self.best_size:
             # the arena dict is never written: keep it, copy the rest
-            self.best = tuple(x if isinstance(x, dict) else x.clone()
-                              for x in args)
+            copy = tuple(x if isinstance(x, dict) else x.clone()
+                         for x in args)
+            if s > self.best_size:
+                self.best_size, self.best = s, copy
+            if s > s_pb:
+                s_pb, kept = s, copy
+        self.by_pb[pb] = (n + 1, s_pb, kept)
         return self.fn(*args)
+
+
+class CallLog:
+    """Wraps a row kernel's entry point of the batch executor (a, b, bands,
+    ...) and keeps every call's a, b width and bands: references, not
+    copies (the executor never writes them after the call), so logging
+    costs the timed run no launch."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, []
+
+    def __call__(self, *args):
+        self.calls.append((args[0], args[1].shape[1], args[2]))
+        return self.fn(*args)
+
+    def summary(self, torch):
+        """Histograms of the calls: b width (calls), a width (calls), band
+        (rows), and the share of a entries that are the sentinel."""
+        pb, pa, band = {}, {}, {}
+        n_a = n_sent = 0
+        for a, w, bands in self.calls:
+            pb[w] = pb.get(w, 0) + 1
+            pa[a.shape[1]] = pa.get(a.shape[1], 0) + 1
+            v, c = torch.unique(bands, return_counts=True)
+            for vi, ci in zip(v.tolist(), c.tolist()):
+                band[vi] = band.get(vi, 0) + ci
+            n_a += a.numel()
+            n_sent += int((a == 2**31 - 1).sum())
+        return {"calls": len(self.calls),
+                "rows": sum(int(b.numel()) for _, _, b in self.calls),
+                "pb": json.dumps(dict(sorted(pb.items())), separators=(",", ":")),
+                "pa": json.dumps(dict(sorted(pa.items())), separators=(",", ":")),
+                "band": json.dumps(dict(sorted(band.items())),
+                                   separators=(",", ":")),
+                "sentinel_share": f"{n_sent / max(n_a, 1):.4f}"}
+
+
+def kernel_count(torch, fn):
+    """CUDA kernels that one call of `fn` launches, by torch.profiler (the
+    device idle before and after); None when the profiler records none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(e.device_type == DeviceType.CUDA and "emcpy" not in e.name
+            and "emset" not in e.name for e in prof.events())
+    return n or None
 
 
 # ---------------------------------------------------------------------------
@@ -574,8 +638,12 @@ def search_phases(args, stack, np, torch, t_phase) -> list:
     from repro_torch.core.postings import BLOCK, PACK_WIDTHS, PackedPostings
     from repro_torch.kernels import ops
     from repro_torch.kernels.edge_cases import (MD_EDGE_CASES, MD_EDGE_WIDTHS,
-                                                md_edge_case)
-    from repro_torch.kernels.intersect import banded_min_delta_rows_info
+                                                ROW_EDGE_CASES,
+                                                ROW_EDGE_WIDTHS, md_edge_case,
+                                                row_edge_case)
+    from repro_torch.kernels.intersect import (banded_delta_mask_rows_info,
+                                               banded_intersect_rows_info,
+                                               banded_min_delta_rows_info)
 
     # -- 2. index -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -638,7 +706,7 @@ def search_phases(args, stack, np, torch, t_phase) -> list:
                lambda a, bk, bd, bands: a.numel() + bk.numel()),
            "banded_delta_mask_rows": Recorder(
                bx.banded_delta_mask_rows,
-               lambda a, b, bands: a.numel() + b.numel())}
+               lambda a, b, bands, windows: a.numel() + b.numel())}
     for name in names:
         setattr(bx, name, rec[name])
     try:
@@ -686,32 +754,57 @@ def search_phases(args, stack, np, torch, t_phase) -> list:
                             for x in scored_rows(np, rng, 8, pa, pb,
                                                 ops.SCORE_DELTA_BITS))
         cases["banded_min_delta_rows"].append([a, bk, bd, bands])
-        cases["banded_delta_mask_rows"].append([a, bk, bands])
+        cases["banded_delta_mask_rows"].append([a, bk, bands,
+                                                bands.flip(0) + 1])
     # the min-delta kernel's fence edge cases (kernels/edge_cases.py), at
     # each case's widths: their planned strides reach every path of the
     # search
     cases["banded_min_delta_rows"] += [
         [torch.from_numpy(x).cuda() for x in md_edge_case(n, pb)]
         for n in MD_EDGE_CASES for pb in MD_EDGE_WIDTHS[n]]
-    # (plain version, which outputs are hits) per row kernel
+    # the intersect and delta-mask kernels' regime edge cases, at each
+    # case's widths: the staged row (16- and 4-byte copies) and the fence
+    for n in ROW_EDGE_CASES:
+        for pb in ROW_EDGE_WIDTHS[n]:
+            a, b, bands, windows = (torch.from_numpy(x).cuda()
+                                    for x in row_edge_case(n, pb))
+            cases["banded_intersect_rows"].append([a, b, bands])
+            cases["banded_delta_mask_rows"].append([a, b, bands, windows])
+    n_row_cases = sum(map(len, ROW_EDGE_WIDTHS.values()))
+
+    def delta_mask_plain(a, b, bands, windows):
+        mask = ops.banded_delta_mask_rows_plain(a, b, bands)
+        return mask, ops.delta_mask_t_bits(mask, windows)
+
+    # (plain version, which outputs are hits) per row kernel; the delta
+    # mask's launch is held on both of its outputs, the mask and its
+    # window scan
     plain = {"banded_intersect_rows": (ops.banded_intersect_rows_plain,
                                        lambda x: x),
              "banded_min_delta_rows": (ops.banded_min_delta_rows_plain,
                                        lambda x: x != ops.I32_SENTINEL),
-             "banded_delta_mask_rows": (ops.banded_delta_mask_rows_plain,
-                                        lambda x: x != 0)}
+             "banded_delta_mask_rows": (delta_mask_plain,
+                                        lambda x: x[0] != 0)}
     for name, (fn_plain, hits) in plain.items():
         kernel = getattr(ops, name)
         for i, args_c in enumerate(cases[name] + [list(rec[name].best)]):
             got = kernel(*args_c)
             want = fn_plain(*args_c)
             torch.cuda.synchronize()
-            err[name] = max(err[name], diff(got, want))
+            if isinstance(want, tuple):
+                for g, w in zip(got, want):
+                    err[name] = max(err[name], diff(g, w))
+            else:
+                err[name] = max(err[name], diff(got, want))
             if i < len(shapes):
                 h = hits(want)
                 check(bool(h.any()) and not bool(h.all()),
                       f"{name} edge case {shapes[i]} is trivial")
     check(all(v == 0 for v in err.values()), f"kernel != plain version: {err}")
+    say("row_edge_cases", cases=n_row_cases,
+        kernels="banded_intersect_rows,banded_delta_mask_rows(mask,t_bits)",
+        max_abs_err=max(err["banded_intersect_rows"],
+                        err["banded_delta_mask_rows"]))
 
     # times at the largest main-path inputs
     arena_m, idx_m = rec["unpack_postings"].best
@@ -735,8 +828,11 @@ def search_phases(args, stack, np, torch, t_phase) -> list:
                                  delta_plane=True, walk=True))),
         "banded_delta_mask_rows": (
             time_cuda_ms(torch, lambda: ops.banded_delta_mask_rows(*dm)),
-            time_cuda_ms(torch, lambda: ops.banded_delta_mask_rows_plain(*dm)),
-            bound_ms(*band_bound(torch, *dm, 4, walk=True, max_band=15))),
+            time_cuda_ms(torch, lambda: delta_mask_plain(*dm)),
+            # the mask and its window scan written, the windows read
+            bound_ms(*(x + y for x, y in zip(
+                band_bound(torch, *dm[:3], 8, walk=True, max_band=15),
+                (4 * dm[0].shape[0], 0))))),
     }
     one = torch.zeros(1, device="cuda")
     say("launch_floor", ms=f"{time_cuda_ms(torch, one.zero_):.4f}",
@@ -747,6 +843,13 @@ def search_phases(args, stack, np, torch, t_phase) -> list:
         rows_with_live_a=int(live.any(1).sum()),
         live_b_per_row=f"{float((md[1] != ops.I32_SENTINEL).sum(1).float().mean()):.1f}",
         **banded_min_delta_rows_info(md[1].shape[1]))
+    for name, info, (a_d, b_d) in (
+            ("banded_intersect_rows", banded_intersect_rows_info, (a_m, b_m)),
+            ("banded_delta_mask_rows", banded_delta_mask_rows_info, dm[:2])):
+        say("kernel_design", name=name, a=tuple(a_d.shape),
+            b=tuple(b_d.shape),
+            live_a=int((a_d != ops.I32_SENTINEL).sum()),
+            **info(b_d.shape[1]))
     say("kernel_shapes", unpack_postings=tuple(idx_m.shape),
         banded_intersect_rows=f"a{tuple(a_m.shape)}b{tuple(b_m.shape)}",
         banded_min_delta_rows=f"a{tuple(md[0].shape)}b{tuple(md[1].shape)}",
@@ -768,6 +871,10 @@ def search_phases(args, stack, np, torch, t_phase) -> list:
     for fn in counters.values():
         fn.launches = 0
     n_calls = 0
+    # every call of the two row kernels in this phase, per engine, for
+    # their `kernel_calls` histograms
+    logged = ("banded_intersect_rows", "banded_delta_mask_rows")
+    logs = {(k, e): CallLog(getattr(bx, k)) for k in logged for e in engines}
 
     def run_batch(eng, batch):
         nonlocal n_calls
@@ -779,6 +886,8 @@ def search_phases(args, stack, np, torch, t_phase) -> list:
 
     results, stats, kind_out, kind_lat, kind_split = {}, {}, {}, {}, {}
     for name, eng in engines.items():
+        for k in logged:
+            setattr(bx, k, logs[k, name])
         ex = eng.batch_executor
         if name != "additional":
             for batch in [batches[0]] + warmups:         # warm-up
@@ -802,9 +911,18 @@ def search_phases(args, stack, np, torch, t_phase) -> list:
                 kind_out.setdefault((name, kname), []).extend(o)
                 kind_lat.setdefault((name, kname), []).append(dt)
             kind_split[name, kname] = dict(ex.timings)
+    for (k, _), log in logs.items():
+        setattr(bx, k, log.fn)
     launches = {k: fn.launches for k, fn in counters.items()}
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the main path never launched: {launches}")
+    for k in logged:
+        n = sum(len(logs[k, e].calls) for e in engines)
+        check(n == launches[k], f"{k}: {n} calls logged, {launches[k]} "
+                                f"launches")
+    for (k, e), log in logs.items():
+        say("kernel_calls", name=k, engine=e, **log.summary(torch))
+    del logs
     t_phase = phase_done("main_path", t_phase)
 
     fields = ("doc", "pos", "postings_read", "used_fallback", "doc_only",
@@ -2062,12 +2180,205 @@ def run_ab_attention(args) -> int:
     return 0
 
 
-def _ab_kernels(tree, md_path, seed):
-    """`tree`'s min-delta kernel on the recorded main-path input at
-    `md_path` and its embedding-bag kernel at the recsys kernel phase's
-    real shapes (built from `seed` by this tree's own code), each held
-    against its plain version, then timed beside the launch floor; FM's
-    serve steps and the bag wrapper's host time per call."""
+def _ab_row_classes(torch, tree, classes, fused):
+    """`tree`'s intersect and delta-mask ops on the largest recorded call
+    of each b width of each engine (`classes`), each held against its
+    plain version, three readings each (the median); with this design's C
+    entry points (a stride argument: 0 stages the row) also each regime
+    the entry point takes at that width, through the entry point."""
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels.intersect import fence_stride
+    plans = len(build.SIGNATURES["intersect"][
+        "banded_intersect_rows_launch"]) == 9
+    out = {}
+    for key, (calls, x) in classes.items():
+        name, engine, pb = key.split("|")
+        pb = int(pb)
+        if name == "banded_intersect_rows":
+            x = x[:3]
+            want = ops.banded_intersect_rows_plain(*x)
+            op = lambda x=x: ops.banded_intersect_rows(*x)
+        else:
+            x = x if fused else x[:3]
+            want = ops.banded_delta_mask_rows_plain(*x[:3])
+            op = lambda x=x: ops.banded_delta_mask_rows(*x)
+        got = op()
+        check(torch.equal(got[0] if isinstance(got, tuple) else got, want),
+              f"{tree}: {key} != plain")
+        fns = {"ms": op}
+        if plans:
+            n, pa = x[0].shape
+            fn = build.load("intersect" if name == "banded_intersect_rows"
+                            else "delta_mask")
+            stream = torch.cuda.current_stream().cuda_stream
+            for regime, stride in (("staged_ms", 0),
+                                   ("fenced_ms", fence_stride(pb))):
+                if stride == 0 and pb > 12288:
+                    continue               # the staged row's 48 KB
+                def launch(x=x, stride=stride, fn=fn, name=name):
+                    if name == "banded_intersect_rows":
+                        res = torch.empty((n, pa), dtype=torch.bool,
+                                          device="cuda")
+                        ptrs = (res.data_ptr(),)
+                    else:
+                        res = torch.empty((2, n, pa), dtype=torch.int32,
+                                          device="cuda")
+                        ptrs = (res[0].data_ptr(), res[1].data_ptr())
+                    build.check(fn(*[t.data_ptr() for t in x], n, pa, pb,
+                                   stride, *ptrs, stream), key)
+                    return res if res.dim() == 2 else res[0]
+                check(torch.equal(launch(), want),
+                      f"{tree}: {key} {regime} != plain")
+                fns[regime] = launch
+        reads = {k: [time_cuda_ms(torch, f) for _ in range(3)]
+                 for k, f in fns.items()}
+        out[key] = {"a": list(x[0].shape), "b": pb, "calls": calls,
+                    "live_a": int((x[0] != 2**31 - 1).sum()),
+                    **{k: percentile(v, 50) for k, v in reads.items()}}
+    return out
+
+
+def _ab_row_kernels(torch, tree, rows):
+    """`tree`'s three row kernels on the recorded main-path inputs `rows`
+    (the largest call of min delta, intersect and delta mask), each held
+    against its plain version, then five readings each beside five of the
+    launch floor, in turns (medians, and each reading).  A tree whose
+    delta-mask op takes no windows (before the window scan moved into its
+    launch) is timed on the mask alone."""
+    from repro_torch.kernels import ops
+    fused = _fused(ops)
+    md, it = rows["min_delta"], rows["intersect"]
+    dm = rows["delta_mask"] if fused else rows["delta_mask"][:3]
+    check(torch.equal(ops.banded_min_delta_rows(*md),
+                      ops.banded_min_delta_rows_plain(*md)),
+          f"{tree}: banded_min_delta_rows != plain")
+    check(torch.equal(ops.banded_intersect_rows(*it),
+                      ops.banded_intersect_rows_plain(*it)),
+          f"{tree}: banded_intersect_rows != plain")
+    mask = ops.banded_delta_mask_rows_plain(*dm[:3])
+    got = ops.banded_delta_mask_rows(*dm)
+    check(torch.equal(got[0] if fused else got, mask),
+          f"{tree}: banded_delta_mask_rows != plain")
+    if fused:
+        check(torch.equal(got[1], ops.delta_mask_t_bits(mask, dm[3])),
+              f"{tree}: banded_delta_mask_rows t_bits != delta_mask_t_bits")
+    one = torch.zeros(1, device="cuda")
+    fns = {"launch_floor": one.zero_,
+           "banded_intersect_rows": lambda: ops.banded_intersect_rows(*it),
+           "banded_delta_mask_rows": lambda: ops.banded_delta_mask_rows(*dm),
+           "banded_min_delta_rows": lambda: ops.banded_min_delta_rows(*md)}
+    reads = {k: [] for k in fns}
+    for _ in range(5):
+        for k, fn in fns.items():
+            reads[k].append(time_cuda_ms(torch, fn))
+    out = {"delta_mask_fused_t_bits": fused}
+    for k, v in reads.items():
+        out[f"{k}_ms"] = percentile(v, 50)
+        out[f"{k}_ms_each"] = json.dumps([round(t, 5) for t in v])
+    return out
+
+
+def _fused(ops):
+    """Whether `ops` is a tree whose delta-mask op takes the windows and
+    returns the mask and its window scan."""
+    import inspect
+    return len(inspect.signature(ops.banded_delta_mask_rows).parameters) == 4
+
+
+def _ab_kword(torch, kw_blob):
+    """The K-word kinds through `tree`'s additional engine on the pickled
+    index: one warm-up batch, then each kind's batch five times (p50 of
+    the batch's host seconds and of its `device` seconds); the CUDA
+    kernels of the kind's bucket with the most groups, and of that
+    bucket's K-way join (the tree's own `kword_found`: its delta-mask
+    launch and window scan), by torch.profiler; a digest of the
+    answers."""
+    import repro_torch.core.batch_executor as bx
+    from repro_torch.core import AdditionalIndexEngine, SearchRequest
+    from repro_torch.kernels import ops
+    data = pickle.loads(kw_blob)
+    eng = AdditionalIndexEngine(data["index"], device="cuda")
+    ex = eng.batch_executor
+
+    def batch(reqs):
+        return [SearchRequest(q, mode="kword", window=w, rank=rk)
+                for q, w, rk in reqs]
+    eng.search_batch(batch(data["warmup"]))
+    torch.cuda.synchronize()
+    out, digest = {}, hashlib.sha256()
+    for kind, reqs in data["kinds"].items():
+        reqs = batch(reqs)
+        lat, dev = [], []
+        for rep in range(5):
+            ex.timings["device"] = 0.0
+            t0 = time.perf_counter()
+            resp = eng.search_batch(reqs)
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t0)
+            dev.append(ex.timings["device"])
+            if rep == 0:
+                for r in resp:
+                    digest.update(r.doc.tobytes() + r.pos.tobytes())
+                    if r.anchor_scores is not None:
+                        digest.update(r.anchor_scores.tobytes())
+        out[f"{kind}_batch_p50_ms"] = percentile(lat, 50) * 1e3
+        out[f"{kind}_device_s_p50"] = percentile(dev, 50)
+        # the kind's K-word bucket with the most groups (then the most
+        # elements), its tables as the executor made them
+        buckets = []
+        step = bx.bucket_step_math
+
+        def keep(arena, t, **kw):
+            if kw.get("kword"):
+                buckets.append((arena, t, kw))
+            return step(arena, t, **kw)
+        bx.bucket_step_math = keep
+        try:
+            eng.search_batch(reqs)
+        finally:
+            bx.bucket_step_math = step
+        arena, t, kw = max(buckets, key=lambda b: (
+            b[1]["start"].shape[1], b[1]["start"].numel() * b[2]["P"]))
+        T, G, F = t["start"].shape
+        out[f"{kind}_bucket"] = f"T{T}G{G}F{F}P0{kw['P0']}P{kw['P']}"
+        out[f"{kind}_bucket_kernels"] = kernel_count(
+            torch, lambda: bx.bucket_step_math(arena, t, **kw))
+        # the join's inputs: the bucket's delta-mask call, then the join
+        # as the tree's kword_found makes it
+        calls = []
+        dmr = bx.banded_delta_mask_rows
+
+        def grab(*args):
+            calls.append(args)
+            return dmr(*args)
+        bx.banded_delta_mask_rows = grab
+        try:
+            bx.bucket_step_math(arena, t, **kw)
+        finally:
+            bx.banded_delta_mask_rows = dmr
+        a_rows, b_rows = calls[-1][0], calls[-1][1]
+        bands, active = t["band"][:, 1:], t["active"][:, 1:]
+        if hasattr(bx, "kword_found"):
+            def join():
+                return bx.kword_found(a_rows, b_rows, bands, active)
+        else:                              # the join before the fused scan
+            def join():
+                masks = ops.banded_delta_mask_rows(a_rows, b_rows,
+                                                   bands.reshape(-1))
+                masks = masks.reshape(T, G - 1, -1).transpose(0, 1)
+                return ops.kword_window_hits(masks, active.transpose(0, 1),
+                                             bands.max(dim=1).values)
+        out[f"{kind}_join_kernels"] = kernel_count(torch, join)
+        digest.update(join().cpu().numpy().tobytes())
+    out["kword_digest"] = digest.hexdigest()[:16]
+    return out
+
+
+def _ab_kernels(tree, rows_path, kw_blob, seed):
+    """`tree`'s embedding-bag kernel at the recsys kernel phase's real
+    shapes (built from `seed` by this tree's own code), held against its
+    plain version, then timed; FM's serve steps and the bag wrapper's host
+    time per call; then the search half (`_ab_search`)."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
@@ -2113,42 +2424,51 @@ def _ab_kernels(tree, md_path, seed):
                               reps)
         out[f"fm_{shape}_step_p50_ms"] = percentile(secs, 50) * 1e3
     del m, real, table, ids, hot, fm, batches
-    # min delta last, on a card the bag calls have kept busy: the kernel is
-    # a few dependent trips to memory, and its single readings in a fresh
-    # process move by a fifth; five readings each, beside five of the
-    # launch floor
-    md = [x.cuda() for x in torch.load(md_path)]
-    check(torch.equal(ops.banded_min_delta_rows(*md),
-                      ops.banded_min_delta_rows_plain(*md)),
-          f"{tree}: banded_min_delta_rows != plain")
-    one = torch.zeros(1, device="cuda")
-    floor, mdt = [], []
-    for _ in range(5):
-        floor.append(time_cuda_ms(torch, one.zero_))
-        mdt.append(time_cuda_ms(torch, lambda: ops.banded_min_delta_rows(*md)))
-    out["launch_floor_ms"] = percentile(floor, 50)
-    out["banded_min_delta_rows_ms"] = percentile(mdt, 50)
-    out["banded_min_delta_rows_ms_each"] = json.dumps(
-        [round(t, 5) for t in mdt])
+    gc.collect()
+    torch.cuda.empty_cache()
     out["digest"] = digest.hexdigest()[:16]
+    return {**out, **_ab_search(torch, tree, rows_path, kw_blob)}
+
+
+def _ab_search(torch, tree, rows_path, kw_blob):
+    """The search half of a run: the K-word kinds (`_ab_kword`), then the
+    row kernels on the recorded inputs at `rows_path` (`_ab_row_kernels`,
+    `_ab_row_classes`), last, on a card the calls before have kept busy:
+    each is a few dependent trips to memory, and its single readings in a
+    fresh process move by a fifth."""
+    from repro_torch.kernels import ops
+    out = _ab_kword(torch, kw_blob)
+    saved = torch.load(rows_path)
+    rows = {k: [x.cuda() for x in v] for k, v in saved["rows"].items()}
+    out.update(_ab_row_kernels(torch, tree, rows))
+    classes = {k: (n, [x.cuda() for x in v])
+               for k, (n, v) in saved["classes"].items()}
+    out["classes"] = _ab_row_classes(torch, tree, classes, _fused(ops))
     return out
 
 
 def run_ab_kernels(args) -> int:
-    """`--ab-kernels TREE ...`: the min-delta and embedding-bag kernels of
-    each checkout in TREE (`ab_runs`).  The min-delta input is the one
-    phase 3 times: the largest call of the search warm-up batches,
-    recorded here once (index of --docs documents, built with the package
-    beside this script) and handed to every run; the bag inputs are the
-    recsys kernel phase's real shapes from --seed, which every run builds
-    with its own code (the plain version's sums must agree across runs),
-    and FM's serve_bulk call once more with every bag reading one row per
-    field (no gather misses: what is left is the ids' and sums' traffic);
-    then the bag wrapper's host time per call at serve_p99 and FM's
-    serve_p99 and serve_bulk step p50; then the min-delta kernel and the
-    launch floor five times each, in turns (medians, and each min-delta
-    reading).  Each kernel is held against its plain version before it is
-    timed."""
+    """`--ab-kernels TREE ...`: the row kernels, the embedding-bag kernel
+    and the K-word path of each checkout in TREE (`ab_runs`).  An index of
+    --docs documents is built once with the package beside this script;
+    the search warm-up batches record the largest call of min delta, of
+    intersect and of delta mask (with the windows the K-word join gives
+    it), and all of the main path's batches through both engines the
+    largest call of each b width of intersect and delta mask, which every
+    run gets; the index and the K-word batches go to every run pickled (the
+    index builder is the same code in every checkout of the port so far).
+    Each run: the bag kernel at the recsys kernel phase's real shapes from
+    --seed, built with its own code (the plain version's sums must agree
+    across runs), and FM's serve_bulk call once more with every bag reading
+    one row per field; the bag wrapper's host time per call at serve_p99
+    and FM's serve_p99 and serve_bulk step p50; the K-word and ranked
+    K-word batches five times each (batch p50, `device` seconds p50) and
+    a torch.profiler count of the CUDA kernels of each kind's bucket with
+    the most groups and of its K-way join (the answers must agree across
+    runs); then the intersect, delta-mask and min-delta kernels and the
+    launch floor five times each, in turns (medians, and each reading),
+    and intersect and delta mask on each b width's call (`_ab_row_classes`).
+    Each kernel is held against its plain version before it is timed."""
     import numpy as np
     import torch
     ab_check_trees(args.ab_kernels)
@@ -2156,8 +2476,8 @@ def run_ab_kernels(args) -> int:
 
     import repro_torch.core.batch_executor as bx
     from repro_torch.core import (AdditionalIndexEngine, CorpusConfig,
-                                  LexiconConfig, build_all, generate_corpus,
-                                  make_lexicon_and_analyzer)
+                                  LexiconConfig, OrdinaryEngine, build_all,
+                                  generate_corpus, make_lexicon_and_analyzer)
     t0 = time.perf_counter()
     lc = LexiconConfig(seed=args.seed)
     lex, ana = make_lexicon_and_analyzer(lc)
@@ -2165,36 +2485,91 @@ def run_ab_kernels(args) -> int:
                                               mean_doc_len=800.0,
                                               seed=args.seed))
     index = build_all(corpus, lex, ana)
-    batches, _, ranked, kw = search_batches(np, corpus, lex, ana, args)
-    rec = Recorder(bx.banded_min_delta_rows,
-                   lambda a, bk, bd, bands: a.numel() + bk.numel())
-    bx.banded_min_delta_rows = rec
+    batches, stop_batch, ranked, kw = search_batches(np, corpus, lex, ana,
+                                                     args)
+    names = ("banded_min_delta_rows", "banded_intersect_rows",
+             "banded_delta_mask_rows")
+    rec = {"banded_min_delta_rows": Recorder(
+               bx.banded_min_delta_rows,
+               lambda a, bk, bd, bands: a.numel() + bk.numel()),
+           "banded_intersect_rows": Recorder(
+               bx.banded_intersect_rows, lambda a, b, bands: a.numel()),
+           "banded_delta_mask_rows": Recorder(
+               bx.banded_delta_mask_rows,
+               lambda a, b, bands, windows: a.numel() + b.numel())}
+    for name in names:
+        setattr(bx, name, rec[name])
     try:
         eng = AdditionalIndexEngine(index, device="cuda")
         for batch in (batches[0], ranked[0], kw[0]):
             eng.search_batch(batch)
     finally:
-        bx.banded_min_delta_rows = rec.fn
-    check(rec.best is not None, "the warm-up batches never reached min delta")
+        for name in names:
+            setattr(bx, name, rec[name].fn)
+    check(all(r.best is not None for r in rec.values()),
+          "the warm-up batches reached not every row kernel")
+    rows = {"min_delta": rec["banded_min_delta_rows"].best,
+            "intersect": rec["banded_intersect_rows"].best,
+            "delta_mask": rec["banded_delta_mask_rows"].best}
+    # the largest call of each b width of the intersect and delta-mask
+    # kernels, per engine, over all of the main path's batches
+    logged = ("banded_intersect_rows", "banded_delta_mask_rows")
+    classes = {}
+    for ename, cls in (("additional", AdditionalIndexEngine),
+                       ("ordinary", OrdinaryEngine)):
+        recs = {k: Recorder(getattr(bx, k), lambda a, *rest: a.numel())
+                for k in logged}
+        for k, r in recs.items():
+            setattr(bx, k, r)
+        try:
+            eng_c = cls(index, device="cuda")
+            for batch in batches + [stop_batch] + ranked + kw:
+                eng_c.search_batch(batch)
+        finally:
+            for k, r in recs.items():
+                setattr(bx, k, r.fn)
+        for k, r in recs.items():
+            for pb, (n, _, inp) in sorted(r.by_pb.items()):
+                classes[f"{k}|{ename}|{pb}"] = (n, [x.cpu() for x in inp])
+        del eng_c, recs
     tmp = tempfile.mkdtemp()
-    md_path = os.path.join(tmp, "min_delta.pt")
-    torch.save([x.cpu() for x in rec.best], md_path)
+    rows_path = os.path.join(tmp, "rows.pt")
+    torch.save({"rows": {k: [x.cpu() for x in v] for k, v in rows.items()},
+                "classes": classes}, rows_path)
+
+    def reqs(b):
+        return [(r.surface_ids, r.window, r.rank) for r in b]
+    kw_blob = pickle.dumps({"index": index, "warmup": reqs(kw[0]),
+                            "kinds": {"kword": reqs(kw[1]),
+                                      "kword_ranked": reqs(kw[2])}},
+                           protocol=pickle.HIGHEST_PROTOCOL)
     say("ab_kernels_setup", docs=args.docs,
-        min_delta=f"a{tuple(rec.best[0].shape)}b{tuple(rec.best[1].shape)}",
+        **{k: f"a{tuple(v[0].shape)}b{tuple(v[1].shape)}"
+           for k, v in rows.items()},
+        classes=len(classes), kword_pickle_bytes=len(kw_blob),
         seconds=f"{time.perf_counter() - t0:.1f}")
-    del eng, index, corpus, rec
+    del eng, index, corpus, rec, rows, classes
     gc.collect()
     torch.cuda.empty_cache()
     try:
-        runs = ab_runs(args.ab_kernels, _ab_kernels, md_path, args.seed)
+        runs = ab_runs(args.ab_kernels, _ab_kernels, rows_path, kw_blob,
+                       args.seed)
     finally:
-        os.unlink(md_path)
+        os.unlink(rows_path)
         os.rmdir(tmp)
     for r in runs:
-        say("ab_kernels", **_fmt(r))
+        for key, c in r["classes"].items():
+            name, engine, pb = key.split("|")
+            say("ab_kernel_class", tree=r["tree"], name=name, engine=engine,
+                **{k: (f"{v:.5f}" if isinstance(v, float) else v)
+                   for k, v in c.items()})
+        say("ab_kernels", **_fmt({k: v for k, v in r.items()
+                                  if k != "classes"}))
     print(json.dumps({"ab_kernels": runs}), flush=True)
     check(len({r["digest"] for r in runs}) == 1,
           "the bag inputs differ across runs")
+    check(len({r["kword_digest"] for r in runs}) == 1,
+          "the K-word answers differ across runs")
     return 0
 
 
@@ -2221,9 +2596,9 @@ def main(argv=None) -> int:
                          "at the LM path's real shapes instead of the "
                          "smoke run")
     ap.add_argument("--ab-kernels", nargs="+", metavar="TREE",
-                    help="A/B the min-delta and embedding-bag kernels of "
-                         "these checkouts at their real shapes instead of "
-                         "the smoke run")
+                    help="A/B the row kernels, the embedding-bag kernel "
+                         "and the K-word path of these checkouts at their "
+                         "real shapes instead of the smoke run")
     args = ap.parse_args(argv)
     for flag, mode in (("ab", run_ab), ("ab_attention", run_ab_attention),
                        ("ab_kernels", run_ab_kernels)):

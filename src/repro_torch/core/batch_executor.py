@@ -28,8 +28,9 @@ bucket keys and padding, so row cuts and postings accounting are identical.
    distance + |dist|) pass over (key, delta)-sorted constraint keys
    (ops.banded_min_delta_rows: the CUDA min-delta kernel on the card).
    K-word buckets decide `found` with the K-way span join over per-group
-   delta masks (ops.banded_delta_mask_rows: the CUDA delta-mask kernel on
-   the card, then ops.kword_window_hits).
+   delta masks and their window scans (ops.banded_delta_mask_rows: one
+   launch of the CUDA delta-mask kernel on the card, then
+   ops.kword_window_hits).
 
 3. **Merge** — host-side, mirroring `Executor.execute` exactly: row keys are
    unioned per task, task results per query; a subplan with no positional
@@ -222,6 +223,24 @@ class _Row:
     scores: np.ndarray | None = None   # ranked rows only, aligned with keys
 
 
+def kword_found(a_rows: torch.Tensor, b_rows: torch.Tensor,
+                bands: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+    """K-way windowed span join of a K-word bucket (core/kword.py): per-group
+    signed delta masks and their window start scans, from one delta-mask
+    launch, ANDed across groups.  a_rows [T * (G - 1), Pa] int32 (each
+    task's seed keys, once per constraint group), b_rows [T * (G - 1), Pb]
+    int32 sorted, bands and active [T, G - 1].  Every active constraint
+    group of a kword task is banded at the task's window W, so the task's
+    W is the max over its group bands (inactive pads are band 0 and never
+    constrain).  Returns bool [T, Pa]."""
+    T, G1 = bands.shape
+    windows = bands.max(dim=1, keepdim=True).values.expand(T, G1)
+    _, t_bits = banded_delta_mask_rows(a_rows, b_rows, bands.reshape(-1),
+                                       windows.reshape(-1))
+    t_bits = t_bits.reshape(T, G1, -1).transpose(0, 1)
+    return kword_window_hits(t_bits, active.transpose(0, 1))
+
+
 def bucket_step_math(arena: dict, t: dict, *, P0: int, P: int,
                      presorted: bool = False, ranked: bool = False,
                      kword: bool = False):
@@ -319,18 +338,6 @@ def bucket_step_math(arena: dict, t: dict, *, P0: int, P: int,
     active_c = t["active"][:, 1:]
     a_rows = a32[:, None].expand(T, G - 1, F * P0).reshape(T * (G - 1), F * P0)
 
-    def kword_found(b32_sorted):
-        """K-way windowed span join: per-group signed delta masks, window
-        start scans ANDed across groups (core/kword.py).  Every active
-        constraint group of a kword task is banded at the task's window W,
-        so the row's W is the max over group bands (inactive pads are band
-        0 and never constrain)."""
-        masks = banded_delta_mask_rows(
-            a_rows, b32_sorted.reshape(T * (G - 1), F * P), bands.reshape(-1))
-        masks = masks.reshape(T, G - 1, F * P0).transpose(0, 1)
-        return kword_window_hits(masks, active_c.transpose(0, 1),
-                                 bands.max(dim=1).values)
-
     if ranked:
         # Constraint keys sort as (key, delta) composites (pads 1 << 40 sort
         # last and never fall inside a band of a real key < 2**30), split
@@ -356,13 +363,16 @@ def bucket_step_math(arena: dict, t: dict, *, P0: int, P: int,
             # found is the span join; a span match implies an in-band hit
             # for every group, so the score above is exact for every
             # survivor (and zeroed below for the rest)
-            found = kword_found(torch.sort(b32, dim=-1).values)
+            found = kword_found(
+                a_rows, torch.sort(b32, dim=-1).values.reshape(
+                    T * (G - 1), F * P), bands, active_c)
         found &= a32 != I32_SENTINEL
         return a64, found, torch.where(found, score, 0.0)
     if not presorted:
         b32 = torch.sort(b32, dim=-1).values
     if kword:
-        found = kword_found(b32)
+        found = kword_found(a_rows, b32.reshape(T * (G - 1), F * P), bands,
+                            active_c)
     else:
         hit = banded_intersect_rows(a_rows, b32.reshape(T * (G - 1), F * P),
                                     bands.reshape(-1))

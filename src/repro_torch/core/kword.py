@@ -21,9 +21,11 @@ that with per-slot *delta masks* — bit (d + W) set iff the slot has a
 candidate at signed offset d from p — then AND the per-slot window scans
 (`t_bits`) over all slots:
 
-  * device: `ops.banded_delta_mask_rows` + `ops.delta_mask_t_bits`
-    (int32 lanes => W <= KW_DEVICE_MAX_WINDOW; wider windows ride the flex
-    escape exactly like cap-overflowing plans);
+  * device: `ops.banded_delta_mask_rows` (the masks and their
+    `delta_mask_t_bits` from one kernel launch on the card) +
+    `ops.kword_window_hits` (int32 lanes => W <= KW_DEVICE_MAX_WINDOW;
+    wider windows ride the flex escape exactly like cap-overflowing
+    plans);
   * flex (this module): the same math in host numpy int64
     (W <= KW_FLEX_MAX_WINDOW).
 

@@ -40,12 +40,14 @@ SIGNATURES = {
     "unpack": {"unpack_postings_launch":
                (_VP, _LL, _VP, _LL, _VP, _LL, _VP, _VP, _VP, _VP)},
     "intersect": {"banded_intersect_rows_launch":
-                  (_VP, _VP, _VP, _LL, _LL, _LL, _VP, _VP)},
+                  (_VP, _VP, _VP, _LL, _LL, _LL, _LL, _VP, _VP),
+                  "banded_intersect_rows_info": (_LL, _LL, _VP)},
     "min_delta": {"banded_min_delta_rows_launch":
                   (_VP, _VP, _VP, _VP, _LL, _LL, _LL, _LL, _VP, _VP),
                   "banded_min_delta_rows_info": (_LL, _VP)},
     "delta_mask": {"banded_delta_mask_rows_launch":
-                   (_VP, _VP, _VP, _LL, _LL, _LL, _VP, _VP)},
+                   (_VP, _VP, _VP, _VP, _LL, _LL, _LL, _LL, _VP, _VP, _VP),
+                   "banded_delta_mask_rows_info": (_LL, _LL, _VP)},
     "flash_decode": {
         "flash_decode_launch": (_VP, _VP, _VP, _VP, _VP, _VP, _LL, _LL, _LL,
                                 _LL, _LL, _LL, _LL, _LL, _VP),

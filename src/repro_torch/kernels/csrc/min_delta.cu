@@ -30,7 +30,8 @@
 // cp.async into shared memory: a copy has no register to wait on, so all
 // the copies of a round are in flight before the one wait (register loads
 // of a round were scheduled one or two at a time, each beside the compare
-// that used it).
+// that used it).  Steps 1-3's search is csrc/row_search.cuh's, shared
+// with intersect.cu and delta_mask.cu.
 //   1. The fence.  The CTA copies every s-th key of its row,
 //      fence[k] = bk[k * s], into shared memory, all in flight beside each
 //      thread's load of its a and band (and a prefetch of bd's page).  s
@@ -65,34 +66,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "hopper.cuh"
+#include "row_search.cuh"
 
 namespace {
 
+using rowsearch::kMaxFence;
+using rowsearch::kSub;
+using rowsearch::W;
 constexpr int kThreads = 128;
-constexpr int kMaxFence = 1024;
-constexpr int kFencePerThread = kMaxFence / kThreads;
-constexpr int kSub = 16;          // sub-fence keys a thread loads at most
-constexpr int W = 64;             // window entries, copied in one round
 constexpr int kMaxDevices = 64;
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   hopper::smem_addr(smem)),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   hopper::smem_addr(smem)),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 
 // |a - k| + d into best when |a - k| <= band, branch-free in 32 bits:
 // the key distance is exact as an unsigned difference, at most band <=
@@ -138,13 +120,9 @@ banded_min_delta_rows_kernel(const int32_t* __restrict__ a,
   const int32_t band32 = __ldg(bands + row);
   // bd's page, so that the window's copies of it find its translation
   if (threadIdx.x == 0) asm volatile("prefetch.global.L2 [%0];" ::"l"(dr));
-  const int nf = pb > stride ? (int)((pb + stride - 1) / stride) : 0;
-#pragma unroll
-  for (int q = 0; q < kFencePerThread; ++q) {
-    const int k = threadIdx.x + q * kThreads;
-    if (k < nf) cp_async4(fence + k, kr + k * stride);
-  }
-  cp_async_wait_all();
+  const int nf = rowsearch::fence_keys(pb, stride);
+  rowsearch::copy_fence<kThreads>(fence, kr, nf, stride);
+  rowsearch::cp_async_wait_all();
   __syncthreads();
   if (!in) return;
   if (av32 == INT32_MAX || band32 < 0) {    // a negative band holds nothing
@@ -158,46 +136,20 @@ banded_min_delta_rows_kernel(const int32_t* __restrict__ a,
 
   // 2. the fence: c = fence keys < lo_key; the first entry >= lo_key is
   // in [L, R] (bk[L - 1] < lo_key, and R == pb or bk[R] >= lo_key)
-  int c = 0, hi = nf;
-  while (c < hi) {
-    const int mid = (c + hi) >> 1;
-    if ((long long)fence[mid] < lo_key) c = mid + 1; else hi = mid;
-  }
+  const int c = rowsearch::fence_count(fence, nf, lo_key);
   if (c == 0 && nf > 0 && (long long)fence[0] > hi_key) {
     out[row * pa + i] = INT32_MAX;         // every key lies above the band
     return;
   }
-  long long L = c == 0 ? 0 : (long long)(c - 1) * stride + 1;
-  long long R = c == nf ? pb : (long long)c * stride;
-  // the sub-fence: up to kSub keys at stride s2 inside (L - 1, R), in one
-  // round of copies; those below lo_key move L up, the first above R down
-  const long long s2 = stride / kSub > W ? stride / kSub : W;
-  if (R - L >= W) {
-    int n_sub = 0;
-#pragma unroll
-    for (int k = 0; k < kSub; ++k) {
-      const long long q = L - 1 + (k + 1) * s2;
-      if (q < R) {
-        cp_async4(sub + k * kThreads + threadIdx.x, kr + q);
-        n_sub = k + 1;
-      }
-    }
-    cp_async_wait_all();
-    int cnt = 0;
-#pragma unroll
-    for (int k = 0; k < kSub; ++k)
-      cnt += k < n_sub && (long long)sub[k * kThreads + threadIdx.x] < lo_key;
-    const long long L0 = L;
-    if (cnt > 0) L = L0 - 1 + cnt * s2 + 1;
-    if (cnt < n_sub) R = L0 - 1 + (cnt + 1) * s2;
-  }
-  while (R - L >= W) {                     // only where s2 > W
-    const long long mid = (L + R) >> 1;
-    if ((long long)__ldg(kr + mid) < lo_key) L = mid + 1; else R = mid;
-  }
+  long long L, R;
+  rowsearch::fence_segment(c, nf, stride, pb, L, R);
+  // the sub-fence, then binary steps only where s2 > W
+  rowsearch::sub_fence<kThreads>(sub, kr, stride, lo_key, L, R);
+  rowsearch::binary_steps(kr, lo_key, L, R, W);
 
   // 3. the window [ws, ws + W): one round of copies into this thread's
-  // column of shared memory, then the in-band minimum over it
+  // column of shared memory (bk and bd interleaved: two loops of copies
+  // read 4% slower), then the in-band minimum over it
   const long long ws = VEC4 ? (L & ~3LL) : L;
 #pragma unroll
   for (int q = 0; q < W / 4; ++q) {
@@ -205,20 +157,22 @@ banded_min_delta_rows_kernel(const int32_t* __restrict__ a,
     int4* dq = win_d + q * kThreads + threadIdx.x;
     if constexpr (VEC4) {
       if (ws + 4 * q < pb) {
-        cp_async16(kq, kr + ws + 4 * q);
-        cp_async16(dq, dr + ws + 4 * q);
+        rowsearch::cp_async16(kq, kr + ws + 4 * q);
+        rowsearch::cp_async16(dq, dr + ws + 4 * q);
       }
     } else {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         if (ws + 4 * q + e < pb) {
-          cp_async4(reinterpret_cast<int32_t*>(kq) + e, kr + ws + 4 * q + e);
-          cp_async4(reinterpret_cast<int32_t*>(dq) + e, dr + ws + 4 * q + e);
+          rowsearch::cp_async4(reinterpret_cast<int32_t*>(kq) + e,
+                               kr + ws + 4 * q + e);
+          rowsearch::cp_async4(reinterpret_cast<int32_t*>(dq) + e,
+                               dr + ws + 4 * q + e);
         }
       }
     }
   }
-  cp_async_wait_all();                     // this thread's own copies
+  rowsearch::cp_async_wait_all();          // this thread's own copies
   uint32_t best32 = INT32_MAX;
   long long last = 0;                      // bk[ws + W - 1] when it exists
 #pragma unroll
@@ -274,11 +228,6 @@ int launch_kernel(const int32_t* a, const int32_t* bk, const int32_t* bd,
   return (int)cudaGetLastError();
 }
 
-// the int4 window needs rows that start on 16 bytes
-bool rows_vec4(const void* bk, const void* bd, long long pb) {
-  return pb % 4 == 0 && (uintptr_t)bk % 16 == 0 && (uintptr_t)bd % 16 == 0;
-}
-
 }  // namespace
 
 // stride: the fence stride, a power of two >= 32 with at most kMaxFence
@@ -297,7 +246,7 @@ extern "C" int banded_min_delta_rows_launch(const void* a, const void* bk,
   const int32_t *ai = (const int32_t*)a, *ki = (const int32_t*)bk,
                 *di = (const int32_t*)bd, *bi = (const int32_t*)bands;
   cudaStream_t s = (cudaStream_t)stream;
-  if (rows_vec4(bk, bd, pb))
+  if (rowsearch::rows_vec4(bk, pb) && rowsearch::rows_vec4(bd, pb))
     return launch_kernel<true>(ai, ki, di, bi, n_rows, pa, pb, stride,
                                (int32_t*)out, s);
   return launch_kernel<false>(ai, ki, di, bi, n_rows, pa, pb, stride,

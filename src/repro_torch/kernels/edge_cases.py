@@ -4,6 +4,9 @@ against the reference on them, and chip_smoke.py's kernel phases.
 
 * `md_edge_case(name)` — min-delta rows that put runs, probes and row
   widths where the kernel's fence search has its edges;
+* `row_edge_case(name)` — intersect and delta-mask rows that put row
+  widths, runs, probes and sentinels where the two kernels' regimes (the
+  staged row, the fence) have their edges;
 * `bag_edge_case(name)` — embedding bags that put ragged tiles, unaligned
   tile starts, staged fields and all-pad bags where the kernel's tiles
   have their edges;
@@ -18,7 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.kernels.intersect import fence_stride
+from repro_torch.kernels.intersect import (ROW_STAGE_KEYS, fence_stride,
+                                           row_plan)
 from repro_torch.kernels.segment_bag import bag_tile, bag_vec
 
 I32_MAX = np.iinfo(np.int32).max
@@ -135,6 +139,139 @@ def md_edge_case(name, pb=None):
     if name == "all_sentinel_row":
         a[1] = I32_MAX
     return a, bk, bd, MD_BANDS.copy()
+
+
+ROW_EDGE_CASES = ("pb_at_stage_threshold", "pb_not_stride_multiple",
+                  "run_straddles_edges", "long_in_band_run", "near_int32_max",
+                  "unsorted_a_segments", "all_sentinel_rows_and_slices")
+# six rows: bands 0, 1, 8 and 15, then two inactive pads of a K-word task
+# (band 0) whose windows are the task's W, not their band
+ROW_BANDS = np.array([0, 1, 8, 15, 0, 0], np.int32)
+ROW_WINDOWS = np.array([0, 1, 8, 15, 8, 15], np.int32)
+ROW_PA = 256               # two 128-thread slices a row
+# the row widths each case is made at, the first its own (the CPU tests
+# hold the plain versions against the reference there); `row_plan`
+# stages rows of up to ROW_STAGE_KEYS keys (by 16-byte copies where the
+# width is a multiple of 4, else 4-byte ones) and fences wider ones:
+# 513 and 1000 at stride 64, 16384 at 1024 (the main path's delta-mask
+# width), 30000 and 32768 at 2048
+ROW_EDGE_WIDTHS = {
+    "pb_at_stage_threshold": (ROW_STAGE_KEYS, ROW_STAGE_KEYS + 1),
+    "pb_not_stride_multiple": (301, 1000, 30000),
+    "run_straddles_edges": (ROW_STAGE_KEYS, 16384, 32768),
+    "long_in_band_run": (256, 16384),
+    "near_int32_max": (256, 16384),
+    "unsorted_a_segments": (ROW_STAGE_KEYS, 16384),
+    "all_sentinel_rows_and_slices": (ROW_STAGE_KEYS, 16384),
+}
+ROW_RUN = 80               # long_in_band_run's in-band entries: past two
+                           # 128-byte lines
+
+
+def row_regime(pb):
+    """The regime of the two kernels' search that rows of `pb` keys take:
+    'row staged, 16-byte copies', 'row staged, 4-byte copies' or
+    'fenced'."""
+    if row_plan(pb):
+        return "fenced"
+    return f"row staged, {16 if pb % 4 == 0 else 4}-byte copies"
+
+
+def row_edge_case(name, pb=None):
+    """(a, b, bands, windows) of one regime edge case of the intersect and
+    delta-mask kernels at row width `pb` (default the case's own,
+    ROW_EDGE_WIDTHS): a [6, 256] (two slices a row), b [6, pb] ascending
+    with dense keys (bands hold several, equal keys form runs) and a
+    sentinel tail, bands ROW_BANDS, windows ROW_WINDOWS:
+    pb_at_stage_threshold         pb ROW_STAGE_KEYS (the last staged row)
+                                  and one key past it (fenced);
+    pb_not_stride_multiple        pb 301 (staged by 4-byte copies), 1000
+                                  and 30000: no multiple of the stride;
+    run_straddles_edges           full rows (no tail) whose last 9 entries
+                                  are one key (the staged row's end), and
+                                  runs of one key across the fence keys
+                                  s, 2s and 3s, with probes at the fence
+                                  keys +- the band;
+    long_in_band_run              a run of ROW_RUN in-band entries (keys
+                                  x .. x + min(band, 15)) and probes in it:
+                                  the delta mask's walk crosses lines;
+    near_int32_max                full rows of keys up to INT32_MAX - 16,
+                                  probes up to INT32_MAX - 1 (a + band
+                                  wraps in int32);
+    unsorted_a_segments           a as doc-shard segments of sorted keys,
+                                  sentinel-padded, in random order;
+    all_sentinel_rows_and_slices  an all-sentinel a row, an all-sentinel b
+                                  row, a b row of one key, and rows whose
+                                  second slice of a is all sentinels."""
+    pb = ROW_EDGE_WIDTHS[name][0] if pb is None else pb
+    rng = np.random.default_rng(ROW_EDGE_CASES.index(name) + 200 + pb)
+    n, pa = len(ROW_BANDS), ROW_PA
+    full = name in ("run_straddles_edges", "near_int32_max")
+    if name == "near_int32_max":
+        top = I32_MAX - 16
+        keys = [np.sort(rng.integers(top - 2 * pb, top + 1, pb))
+                for _ in range(n)]
+    else:
+        keys = [np.sort(rng.integers(
+            0, 2 * pb, pb - (0 if full else int(rng.integers(1, pb // 8 + 2)))))
+            for _ in range(n)]
+    s = row_plan(pb) or fence_stride(pb)
+    if name == "run_straddles_edges":
+        edges = (s, 2 * s, 3 * s)
+        for k in keys:
+            for e in edges:
+                if e + 9 <= len(k) - 10:
+                    k[e - 8:e + 9] = k[e - 8]
+            k[-9:] = k[-9]
+            k.sort()
+    run_at = []
+    if name == "long_in_band_run":
+        for r, k in enumerate(keys):
+            w = min(int(ROW_BANDS[r]), 15)
+            p = len(k) // 3
+            x = int(k[p])
+            k[p:p + ROW_RUN] = x + np.arange(ROW_RUN) * (w + 1) // ROW_RUN
+            k.sort()
+            run_at.append(x)
+    if name == "all_sentinel_rows_and_slices":
+        keys[2] = keys[2][:0]
+        keys[3] = keys[3][:1]
+    b = np.full((n, pb), I32_MAX, np.int32)
+    for r, k in enumerate(keys):
+        b[r, :len(k)] = k
+    a = np.full((n, pa), I32_MAX, np.int32)
+    for r in range(n):
+        band = int(ROW_BANDS[r])
+        if not len(keys[r]):
+            a[r] = rng.integers(0, 2 * pb, pa)
+            continue
+        if name == "near_int32_max":
+            k = keys[r][rng.integers(0, len(keys[r]), pa)].astype(np.int64)
+            off = rng.choice([0, band, -band, band + 1, -band - 1, 1, -1], pa)
+            a[r] = np.clip(k + off, 0, I32_MAX - 1)
+            a[r, :4] = [I32_MAX - 1, I32_MAX - 1 - band, keys[r][-1],
+                        min(keys[r][-1] + band + 1, I32_MAX - 1)]
+            a[r, 4:8] = keys[r][0] - band - 1 - np.array([0, 5, 50, 100])
+            continue
+        a[r] = probes(rng, b[r], band, pa)
+        if name == "run_straddles_edges":
+            fence = b[r, :len(keys[r]):s].astype(np.int64)
+            at = np.concatenate([fence, fence + band,
+                                 np.maximum(fence - band, 0)])[:pa // 2]
+            a[r, :len(at)] = at
+        if name == "long_in_band_run":
+            x, w = run_at[r], min(band, 15)
+            a[r, :6] = [x, x + w // 2, x + w, x - w, x + 2 * w + 1, x - 1]
+        if name == "unsorted_a_segments":
+            seg = np.full((8, 32), I32_MAX, np.int32)
+            for s_ in range(8):
+                m = int(rng.integers(8, 33))
+                seg[s_, :m] = np.sort(a[r, s_ * 32:s_ * 32 + m])
+            a[r] = seg[rng.permutation(8)].reshape(-1)
+    if name == "all_sentinel_rows_and_slices":
+        a[1] = I32_MAX
+        a[4:, 128:] = I32_MAX
+    return a, b, ROW_BANDS.copy(), ROW_WINDOWS.copy()
 
 
 BAG_EDGE_CASES = ("ragged_last_tile", "odd_F_unaligned_tiles",

@@ -6,9 +6,10 @@ flash_prefill.py, segment_bag.py; sources in csrc/) or raises,
 a CPU tensor takes the plain version below.  The plain versions are pure
 tensor code that runs on either device; the CPU tests hold them against the
 reference package, and chip_smoke.py holds the kernels against them on the
-card.  The K-word window scan (`delta_mask_t_bits`, `kword_window_hits`)
-is plain tensor code on both devices, as it is jnp outside any Pallas
-kernel in the reference.
+card.  The K-word window scan (`delta_mask_t_bits`) runs in the
+delta-mask kernel's launch on the card, where the reference's XLA fuses
+its jnp into the bucket's program; `kword_window_hits`, the AND of the
+scan over constraint groups, is plain tensor code on both devices.
 """
 from __future__ import annotations
 
@@ -197,12 +198,16 @@ def banded_delta_mask_rows_plain(a: torch.Tensor, b_sorted: torch.Tensor,
 
 
 def banded_delta_mask_rows(a: torch.Tensor, b_sorted: torch.Tensor,
-                           bands: torch.Tensor) -> torch.Tensor:
-    """Batched signed-delta bitmask (see banded_delta_mask_rows_plain) — the
-    CUDA kernel on the card, the plain version on the CPU."""
+                           bands: torch.Tensor, windows: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(mask, t_bits): the batched signed-delta bitmask (see
+    banded_delta_mask_rows_plain) and its window scan at per-row windows
+    W = windows[n] (see delta_mask_t_bits), int32 [N, Pa] each — one launch
+    of the CUDA kernel on the card, the plain versions on the CPU."""
     if _on_cpu(a, "banded_delta_mask_rows"):
-        return banded_delta_mask_rows_plain(a, b_sorted, bands)
-    return banded_delta_mask_rows_cuda(a, b_sorted, bands)
+        mask = banded_delta_mask_rows_plain(a, b_sorted, bands)
+        return mask, delta_mask_t_bits(mask, windows)
+    return banded_delta_mask_rows_cuda(a, b_sorted, bands, windows)
 
 
 def delta_mask_t_bits(mask: torch.Tensor, bands: torch.Tensor) -> torch.Tensor:
@@ -219,22 +224,29 @@ def delta_mask_t_bits(mask: torch.Tensor, bands: torch.Tensor) -> torch.Tensor:
     return bits
 
 
-def kword_window_hits(masks: torch.Tensor, active: torch.Tensor,
-                      bands: torch.Tensor) -> torch.Tensor:
-    """The K-word match bit from per-group delta masks: masks [G, N, Pa]
-    int32, active [G, N] bool (dead groups never constrain), bands [N]
-    int32.  Anchor i matches iff some window start t in [0, W] intersects
-    every active group's mask in bits [t, t + W] — all K words inside one
-    (W + 1)-wide window containing the anchor.  Returns bool [N, Pa]."""
-    if masks.shape[0] == 0:
-        return torch.zeros(masks.shape[1:], dtype=torch.bool,
-                           device=masks.device)
-    t_ok = None
-    for g in range(masks.shape[0]):
-        bits = torch.where(active[g][:, None],
-                           delta_mask_t_bits(masks[g], bands), -1)
-        t_ok = bits if t_ok is None else (t_ok & bits)
-    return t_ok != 0
+_T_BITS = {}                   # (device) -> int32 [16]: 1 << t
+
+
+def kword_window_hits(t_bits: torch.Tensor,
+                      active: torch.Tensor) -> torch.Tensor:
+    """The K-word match bit from per-group window scans: t_bits [G, N, Pa]
+    int32 (`delta_mask_t_bits` of each constraint group's mask at the row's
+    window W), active [G, N] bool (dead groups never constrain: they count
+    as all bits set).  Anchor i matches iff some window start t in [0, W]
+    is set in every active group's scan — all K words inside one
+    (W + 1)-wide window containing the anchor.  The AND over groups is
+    taken bit by bit (torch has no bitwise-AND reduction): four launches
+    whatever G.  Returns bool [N, Pa]."""
+    if t_bits.shape[0] == 0:
+        return torch.zeros(t_bits.shape[1:], dtype=torch.bool,
+                           device=t_bits.device)
+    dev = t_bits.device
+    if dev not in _T_BITS:
+        _T_BITS[dev] = (torch.ones((), dtype=torch.int32, device=dev)
+                        << torch.arange(KW_MAX_BAND + 1, dtype=torch.int32,
+                                        device=dev))
+    bits = torch.where(active[:, :, None], t_bits, -1)
+    return (bits[..., None] & _T_BITS[dev]).all(dim=0).any(dim=-1)
 
 
 # ---------------------------------------------------------------------------

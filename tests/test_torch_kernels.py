@@ -20,9 +20,11 @@ from repro_torch.core.batch_executor import BatchDeviceIndex
 from repro_torch.core.postings import BLOCK, PACK_WIDTHS, PackedPostings
 from repro_torch.kernels import ops
 from repro_torch.kernels.edge_cases import (BAG_EDGE_CASES, MD_EDGE_CASES,
-                                            MD_EDGE_WIDTHS, bag_edge_case,
+                                            MD_EDGE_WIDTHS, ROW_EDGE_CASES,
+                                            ROW_EDGE_WIDTHS, bag_edge_case,
                                             bag_past_4gib, md_edge_case,
-                                            md_sub_stride, offset_view)
+                                            md_sub_stride, offset_view,
+                                            row_edge_case, row_regime)
 
 I32_MAX = np.iinfo(np.int32).max
 SDB, SDM = ops.SCORE_DELTA_BITS, ops.SCORE_DELTA_MASK   # (key, delta) layout
@@ -392,6 +394,162 @@ def test_fence_stride_plan():
     assert fence_stride(1 << 20) == (1 << 20) // FENCE_KEYS
 
 
+# ---------------------------------------------------------------------------
+# intersect and delta mask: the two regimes' edge cases.  Both kernels copy
+# a row of up to ROW_STAGE_KEYS keys whole into shared memory and search
+# wider rows through min delta's fence (`row_plan`); these rows put widths,
+# runs, probes and sentinels where the two regimes have their edges
+# (kernels/edge_cases.py, shared with chip_smoke.py).  Here the plain
+# versions against the Pallas kernels and the reference's window scan, at
+# each case's own width; on the card each kernel against its plain
+# version at every width.
+# ---------------------------------------------------------------------------
+
+def _ref_intersect(ref, a, b, bands):
+    jnp = ref["jnp"]
+    return np.asarray(ref["ops"].banded_intersect_rows(
+        jnp.asarray(a), jnp.asarray(b), jnp.asarray(bands),
+        implementation="pallas", interpret=True))
+
+
+@pytest.mark.parametrize("name", ROW_EDGE_CASES)
+def test_intersect_plain_row_edge_cases_match_pallas(ref, name):
+    a, b, bands, _ = row_edge_case(name)
+    want = _ref_intersect(ref, a, _pad128(b, I32_MAX), bands)
+    got = ops.banded_intersect_rows(*map(torch.from_numpy, (a, b, bands)))
+    assert np.array_equal(got.numpy(), want)
+    assert want.any() and not want.all()
+    for r in (0, 1, 2, 3):              # every band finds and misses
+        if (a[r] != I32_MAX).any() and (b[r] != I32_MAX).sum() > 1:
+            assert want[r].any() and not want[r].all(), (name, r)
+
+
+@pytest.mark.parametrize("name", ROW_EDGE_CASES)
+def test_delta_mask_plain_row_edge_cases_match_pallas(ref, name):
+    """Both outputs of the op on the CPU: the mask against the Pallas
+    kernel, the window scan against the reference's `delta_mask_t_bits`
+    at the rows' windows (which differ from the bands on the two inactive
+    pads)."""
+    jnp = ref["jnp"]
+    a, b, bands, windows = row_edge_case(name)
+    want = _ref_delta_mask(ref, a, _pad128(b, I32_MAX), bands)
+    want_t = np.asarray(ref["ops"].delta_mask_t_bits(jnp.asarray(want),
+                                                     jnp.asarray(windows)))
+    mask, t_bits = ops.banded_delta_mask_rows(
+        *map(torch.from_numpy, (a, b, bands, windows)))
+    assert np.array_equal(mask.numpy(), want)
+    assert np.array_equal(t_bits.numpy(), want_t)
+    assert (want != 0).any() and (want == 0).any()
+    assert (want_t[4:] != 0).any()      # the pads' windows are in use
+    if name == "long_in_band_run":      # runs of many in-band entries
+        assert (want[3, :3] != 0).all()
+
+
+def test_row_edge_cases_hold_their_edges():
+    """Each case puts what its name says where the two regimes have their
+    edges, at each of its widths, and the widths reach every path: the
+    staged row by 16-byte and by 4-byte copies and the fence, and a long
+    in-band run in both regimes."""
+    from repro_torch.kernels.edge_cases import (ROW_BANDS, ROW_PA, ROW_RUN,
+                                                ROW_WINDOWS)
+    from repro_torch.kernels.intersect import (ROW_STAGE_KEYS, fence_stride,
+                                               row_plan)
+    paths = set()
+    for name, widths in ROW_EDGE_WIDTHS.items():
+        for pb in widths:
+            a, b, bands, windows = row_edge_case(name, pb)
+            assert a.shape == (6, ROW_PA) and b.shape == (6, pb)
+            assert (np.diff(b.astype(np.int64), axis=1) >= 0).all()
+            assert np.array_equal(bands, ROW_BANDS)
+            assert np.array_equal(windows, ROW_WINDOWS)
+            assert (windows[4:] != bands[4:]).all()
+            paths.add(row_regime(pb))
+            s = row_plan(pb)
+            if name == "pb_at_stage_threshold":
+                assert pb - ROW_STAGE_KEYS in (0, 1)
+            if name == "pb_not_stride_multiple":
+                assert pb % (s or fence_stride(pb))
+            if name == "run_straddles_edges":
+                assert (b != I32_MAX).all()
+                assert (b[:, -9:] == b[:, -9:-8]).all()   # the row's end
+                for j in (1, 2, 3):
+                    j *= s or fence_stride(pb)
+                    assert (b[:, j - 1] == b[:, j]).all()
+                    assert (b[:, j] == b[:, j + 1]).all()
+            if name == "long_in_band_run":
+                for r in range(4):
+                    w = min(int(bands[r]), 15)
+                    x = int(a[r, 0])
+                    inband = (b[r] >= x - w) & (b[r] <= x + w)
+                    assert inband.sum() >= ROW_RUN > 64
+                paths.add(f"long run, {row_regime(pb)}")
+            if name == "near_int32_max":
+                live = a[a != I32_MAX].astype(np.int64)
+                assert (live.max() + 15 > I32_MAX)
+                assert b.max() <= I32_MAX - 16
+            if name == "unsorted_a_segments":
+                live = a != I32_MAX
+                assert (~live).any(axis=1).all()
+                assert (np.diff(np.where(live, a, -1).astype(np.int64),
+                                axis=1) < 0).any()
+            if name == "all_sentinel_rows_and_slices":
+                assert (a[1] == I32_MAX).all() and (b[2] == I32_MAX).all()
+                assert (b[3] != I32_MAX).sum() == 1
+                assert (a[4:, 128:] == I32_MAX).all()
+    assert paths == {"row staged, 16-byte copies", "row staged, 4-byte copies",
+                     "fenced", "long run, row staged, 16-byte copies",
+                     "long run, fenced"}
+
+
+def test_row_plan():
+    """Rows of up to ROW_STAGE_KEYS keys are staged whole (their shared
+    memory within the 48 KB a launch gets without opting in), wider ones
+    take min delta's fence stride, a fence a warp's lanes copy."""
+    from repro_torch.kernels.intersect import (ROW_STAGE_KEYS, fence_stride,
+                                               row_plan)
+    assert ROW_STAGE_KEYS * 4 <= 48 * 1024
+    for pb in [0, 1, 127, 128, 1001, ROW_STAGE_KEYS, ROW_STAGE_KEYS + 1,
+               16384, 30000, 1 << 20]:
+        s = row_plan(pb)
+        assert s == (0 if pb <= ROW_STAGE_KEYS else fence_stride(pb))
+        assert s == 0 or -(-pb // s) <= 32      # one key a lane of a warp
+
+
+def test_kword_found_fuses_the_window_scan():
+    """The K-word join through the op's two outputs equals the old
+    composition (the plain masks, then each group's `delta_mask_t_bits`
+    at the task's window, inactive groups as -1, ANDed) on a bucket of
+    four tasks with three constraint groups: inactive groups, a task with
+    none active, and windows 1, 5, 8 and 15."""
+    from repro_torch.core.batch_executor import kword_found
+    rng = np.random.default_rng(41)
+    T, G1, pa, pb = 4, 3, 128, 256
+    a, b, _ = _rebased_rows(rng, T * G1, pa, pb)
+    b = np.sort(b & ((2 << 17) - 1) | np.where(b == I32_MAX, I32_MAX, 0),
+                axis=1).astype(np.int32)
+    a = np.where(a == I32_MAX, a, a & ((2 << 17) - 1)).astype(np.int32)
+    a = np.repeat(a[::G1], G1, axis=0)              # a task's seed, per group
+    W = np.array([1, 5, 8, 15], np.int32)
+    active = np.array([[1, 1, 0], [1, 0, 1], [0, 0, 0], [1, 1, 1]], bool)
+    bands = np.where(active, W[:, None], 0).astype(np.int32)
+    ta, tb, tbands, tact = map(torch.from_numpy, (a, b, bands, active))
+    got = kword_found(ta, tb, tbands, tact)
+    masks = ops.banded_delta_mask_rows_plain(ta, tb, tbands.reshape(-1))
+    masks = masks.reshape(T, G1, pa)
+    t_ok = None
+    for g in range(G1):
+        bits = torch.where(tact[:, g, None],
+                           ops.delta_mask_t_bits(masks[:, g],
+                                                 torch.from_numpy(W)), -1)
+        t_ok = bits if t_ok is None else t_ok & bits
+    want = t_ok != 0
+    assert got.dtype == torch.bool and got.shape == (T, pa)
+    assert torch.equal(got, want)
+    assert want[2].all()                # no active group: every anchor
+    live = torch.from_numpy(a[::G1] != I32_MAX)
+    assert (want & live)[[0, 1, 3]].any() and not (want | ~live).all()
+
+
 @pytest.mark.parametrize("elem_size", [4, 2])
 @pytest.mark.parametrize("weighted", [False, True])
 def test_bag_tile_plan(elem_size, weighted):
@@ -471,8 +629,10 @@ def test_kword_window_hits_matches_reference(ref):
     active[:, 0] = False                                 # no active group
     want = np.asarray(ref["ops"].kword_window_hits(
         jnp.asarray(masks), jnp.asarray(active), jnp.asarray(bands)))
-    got = ops.kword_window_hits(*map(torch.from_numpy, (masks, active,
-                                                         bands)))
+    t_bits = torch.stack([ops.delta_mask_t_bits(torch.from_numpy(m),
+                                                torch.from_numpy(bands))
+                          for m in masks])
+    got = ops.kword_window_hits(t_bits, torch.from_numpy(active))
     assert got.dtype == torch.bool
     assert np.array_equal(got.numpy(), want)
     assert want.any() and not want.all()
@@ -502,8 +662,10 @@ def test_scoring_dispatch_takes_plain_version_on_cpu():
               ops.banded_delta_mask_rows_cuda.launches)
     assert torch.equal(ops.banded_min_delta_rows(a, bk, bd, bands),
                        ops.banded_min_delta_rows_plain(a, bk, bd, bands))
-    assert torch.equal(ops.banded_delta_mask_rows(a, bk, bands),
-                       ops.banded_delta_mask_rows_plain(a, bk, bands))
+    mask = ops.banded_delta_mask_rows_plain(a, bk, bands)
+    got = ops.banded_delta_mask_rows(a, bk, bands, bands + 1)
+    assert torch.equal(got[0], mask)
+    assert torch.equal(got[1], ops.delta_mask_t_bits(mask, bands + 1))
     assert counts == (ops.banded_min_delta_rows_cuda.launches,
                       ops.banded_delta_mask_rows_cuda.launches)
 
@@ -612,11 +774,85 @@ def test_delta_mask_kernel_matches_plain_on_card(cuda_device, pa, pb):
     rng = np.random.default_rng(pa + 2)
     a, b, _ = _rebased_rows(rng, 8, pa, pb)
     bands = np.array([0, 1, 8, 15, 15, 2, 5, 15], np.int32)
-    a, b, bands = (torch.from_numpy(x).to(cuda_device) for x in (a, b, bands))
-    got = ops.banded_delta_mask_rows(a, b, bands)
+    windows = np.array([0, 15, 8, 15, 3, 2, 31, -1], np.int32)
+    a, b, bands, windows = (torch.from_numpy(x).to(cuda_device)
+                            for x in (a, b, bands, windows))
+    mask, t_bits = ops.banded_delta_mask_rows(a, b, bands, windows)
     want = ops.banded_delta_mask_rows_plain(a, b, bands)
     torch.cuda.synchronize()
+    assert torch.equal(mask, want)
+    assert torch.equal(t_bits, ops.delta_mask_t_bits(want, windows))
+
+
+@pytest.mark.parametrize("name,pb", [(n, pb) for n in ROW_EDGE_CASES
+                                     for pb in ROW_EDGE_WIDTHS[n]])
+def test_intersect_kernel_row_edge_cases_on_card(cuda_device, name, pb):
+    """The two regimes' edge cases at each of their widths (the staged row
+    by 16-byte and 4-byte copies, the fence); exact equality, one launch
+    each."""
+    a, b, bands, _ = (torch.from_numpy(x).to(cuda_device)
+                      for x in row_edge_case(name, pb))
+    before = ops.banded_intersect_rows_cuda.launches
+    got = ops.banded_intersect_rows_cuda(a, b, bands)
+    want = ops.banded_intersect_rows_plain(a, b, bands)
+    torch.cuda.synchronize()
+    assert ops.banded_intersect_rows_cuda.launches == before + 1
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name,pb", [(n, pb) for n in ROW_EDGE_CASES
+                                     for pb in ROW_EDGE_WIDTHS[n]])
+def test_delta_mask_kernel_row_edge_cases_on_card(cuda_device, name, pb):
+    """Both outputs of one launch, the mask against the plain version and
+    the window scan against `delta_mask_t_bits` of the plain mask at the
+    rows' windows; exact equality."""
+    a, b, bands, windows = (torch.from_numpy(x).to(cuda_device)
+                            for x in row_edge_case(name, pb))
+    before = ops.banded_delta_mask_rows_cuda.launches
+    mask, t_bits = ops.banded_delta_mask_rows_cuda(a, b, bands, windows)
+    want = ops.banded_delta_mask_rows_plain(a, b, bands)
+    torch.cuda.synchronize()
+    assert ops.banded_delta_mask_rows_cuda.launches == before + 1
+    assert torch.equal(mask, want)
+    assert torch.equal(t_bits, ops.delta_mask_t_bits(want, windows))
+
+
+@pytest.mark.parametrize("pb", [256, 512, 16384, 32768])
+def test_row_kernels_offset_rows_on_card(cuda_device, pb):
+    """b planes that start 4 bytes past a 16-byte boundary take 4-byte
+    copies in both regimes; equal to the plain versions."""
+    a, b, bands, windows = (torch.from_numpy(x).to(cuda_device)
+                            for x in row_edge_case("run_straddles_edges", pb))
+    b = offset_view(b)
+    assert b.data_ptr() % 16 == 4
+    assert torch.equal(ops.banded_intersect_rows_cuda(a, b, bands),
+                       ops.banded_intersect_rows_plain(a, b, bands))
+    mask, t_bits = ops.banded_delta_mask_rows_cuda(a, b, bands, windows)
+    want = ops.banded_delta_mask_rows_plain(a, b, bands)
+    assert torch.equal(mask, want)
+    assert torch.equal(t_bits, ops.delta_mask_t_bits(want, windows))
+
+
+@pytest.mark.parametrize("pb", [128, 511, 512, 513, 16384])
+def test_row_kernel_info_on_card(cuda_device, pb):
+    """The compiled kernels report the planned regime and their
+    resources."""
+    from repro_torch.kernels.intersect import (banded_delta_mask_rows_info,
+                                               banded_intersect_rows_info,
+                                               row_plan)
+    for info in (banded_intersect_rows_info(pb),
+                 banded_delta_mask_rows_info(pb)):
+        s = row_plan(pb)
+        assert info["regime"] == ("row_staged" if s == 0 else "fenced")
+        assert info["fence_stride"] == s and info["threads"] == 128
+        assert info["registers"] > 0
+        if s == 0:
+            assert info["staged_keys"] == pb
+            assert info["dynamic_smem_bytes"] == -(-pb // 4) * 16
+            assert info["int4_copies"] == (pb % 4 == 0)
+        else:
+            assert info["fence_keys"] == -(-pb // s) <= 32
+            assert info["dynamic_smem_bytes"] == 4 * 32 * 4   # a warp's fence
 
 
 def _attention_inputs(rng, shapes, dtype, device):
