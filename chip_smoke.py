@@ -46,6 +46,17 @@ Phases, each reported on its own lines:
    delta-mask call of the phase is logged (no copies, no launches) and
    printed as a `kernel_calls` histogram of its b width, a width and band
    and its share of sentinel a entries;
+4b. serve tier — `SearchServe` over the same index on a one-rank NCCL
+   process group at veretennikov's serve_batch caps (configs/
+   veretennikov.py): every batch of phase 4 through `search_batch`, each
+   response equal to the additional engine's on the card field by field
+   (a ranked response with one score's last bit flipped must be refused),
+   the four search kernels' launch counters rising, one all_reduce a step
+   and two a ranked step; QPS and batch p50 / p99 per kind beside the
+   engine's, the executor's phase split, its slab's live share, the tier
+   ladder, the arena's device bytes and peak memory; then the search
+   launcher's closed loop (`launch/serve.py --mode search`, unranked and
+   `--ranked`);
 5. LM kernels — with the search phases' memory handed back, `--lm-arch`
    (llama3-8b) at full width in bf16 with random weights from --seed; each
    kernel's design at the path's shapes (the decode's split of the cache;
@@ -102,7 +113,9 @@ Phases, each reported on its own lines:
    peak memory.
 
 Any failed check exits non-zero.  Before the last line it prints one
-`kernels` JSON line for all seven kernels; the last line of standard output
+`kernels` JSON line for all seven kernels (the search kernels' `launches`
+count phases 4 and 4b, `serve_launches` phase 4b alone); the last line of
+standard output
 is `{"ok": true, "device": {...}}`.  Without a CUDA device, or without the
 repository's sources beside it, the script fails without a result.
 """
@@ -684,7 +697,7 @@ def search_phases(args, stack, np, torch, t_phase) -> list:
     engines = {"additional": AdditionalIndexEngine(index, device="cuda"),
                "ordinary": OrdinaryEngine(index, device="cuda")}
     for eng in engines.values():
-        eng.batch_executor                       # arenas onto the card now
+        eng.batch_executor.dev.device_arena      # arenas onto the card now
     torch.cuda.synchronize()
     dev_bytes = engines["additional"].batch_executor.dev.device_nbytes()
     say("index", docs=corpus.n_docs, tokens=corpus.n_tokens,
@@ -1004,6 +1017,20 @@ def search_phases(args, stack, np, torch, t_phase) -> list:
         ratio=f"{kw_post['ordinary'] / max(kw_post['additional'], 1):.2f}")
     say("memory", max_memory_allocated=torch.cuda.max_memory_allocated())
     say("launches", **launches, batches=n_calls)
+    t_phase = phase_done("main_path_checks", t_phase)
+
+    # -- 4b. the serve tier ---------------------------------------------------
+    lat_a, _, stop_s = stats["additional"]
+    engine_lat = {"unranked": lat_a, "stop_near": [stop_s],
+                  **{k: kind_lat["additional", k] for k in kinds}}
+    want = {"unranked": results["additional"][:n_b * bs],
+            "stop_near": results["additional"][n_b * bs:],
+            **{k: kind_out["additional", k] for k in kinds}}
+    serve_launches = serve_phase(
+        np, torch, index, [batches[0]] + warmups,
+        {"unranked": batches[1:], "stop_near": [stop_batch], **kinds}, want,
+        engine_lat, counters, fields + ("anchor_subplans",), same)
+    t_phase = phase_done("serve", t_phase)
 
     replaces = {"unpack_postings": "src/repro/kernels/unpack.py:39",
                 "banded_intersect_rows": "src/repro/kernels/intersect.py:58",
@@ -1020,11 +1047,178 @@ def search_phases(args, stack, np, torch, t_phase) -> list:
                         "source": "src/repro_torch/kernels/csrc/"
                                   + sources[name],
                         "replaces": replaces[name],
-                        "launches": launches[name],
+                        "launches": launches[name] + serve_launches[name],
+                        "serve_launches": serve_launches[name],
                         "max_abs_err": err[name], "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": b_ms,
                         "bound_by": b_by, "library_ms": None})
     return kernels
+
+
+# ---------------------------------------------------------------------------
+# the serve tier
+# ---------------------------------------------------------------------------
+
+def serve_phase(np, torch, index, warm, kinds, want, engine_lat, counters,
+                fields, same) -> dict:
+    """Phase 4b: `SearchServe` over phase 4's index on a one-rank NCCL
+    process group (a file store in a temporary directory), at the caps of
+    veretennikov's serve_batch shape.  Every batch of phase 4 (the
+    warm-ups `warm`, then each kind's batches in `kinds`) goes through
+    `search_batch`; each response must equal the additional engine's on
+    the card (`want`, per kind, already held to the CPU and the oracles),
+    field by field, and the comparison must refuse a ranked response whose
+    lowest score has its last bit flipped.  The four search kernels'
+    launch counters must rise, and the executor's collective count must
+    equal the all_reduce calls made: one a step, two a ranked step.  Then
+    the search launcher's closed loop, unranked and ranked.  Returns the
+    phase's launches per kernel."""
+    import dataclasses
+    import tempfile
+
+    import torch.distributed as dist
+
+    import repro_torch.serve.search_serve as ss
+    from repro_torch.configs.veretennikov import SEARCH_SHAPES
+    from repro_torch.launch import serve as launcher
+    from repro_torch.launch.mesh import make_host_mesh
+
+    store = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        dist.init_process_group(
+            "nccl", init_method="file://" + os.path.join(store, "store"),
+            world_size=1, rank=0)
+    except Exception as e:          # the run fails: the group is the path
+        raise SmokeFailure(f"no NCCL process group: {e!r}") from e
+    try:
+        shape = SEARCH_SHAPES["serve_batch"]
+        cfg = ss.SearchServeConfig(
+            name="veretennikov-serve_batch",
+            **{k: v for k, v in shape.items() if k != "kind"})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mesh = make_host_mesh(data=1, model=1)
+        check(mesh.distributed and mesh.device.type == "cuda",
+              f"the serve mesh is not on a process group on the card: {mesh}")
+        t0 = time.perf_counter()
+        serve = ss.SearchServe(index, cfg, mesh)
+        torch.cuda.synchronize()
+        ex = serve.executor
+        say("serve_index", config=cfg.name, queries=cfg.queries,
+            task_rows=cfg.task_rows, caps=json.dumps(
+                [cfg.groups, cfg.fetch_slots, cfg.p_seed, cfg.postings_pad]),
+            build_s=f"{time.perf_counter() - t0:.2f}",
+            dp=f"{mesh.dp_rank}/{mesh.dp_size}",
+            arena_device_bytes=ex.arena_nbytes(),
+            docs_per_shard=ex.dev.docs_per_shard, doc_shards=ex.dev.n_shards,
+            max_memory_allocated=torch.cuda.max_memory_allocated())
+
+        # every all_reduce the phase makes, every step (ranked or not) and
+        # the steps and slab rows of each step shape (T x G x F x P0 x P)
+        reduce_calls, steps, shapes = [0], {False: 0, True: 0}, {}
+        all_reduce, step_math = dist.all_reduce, ss.bucket_step_math
+
+        def counted_all_reduce(*a, **kw):
+            reduce_calls[0] += 1
+            return all_reduce(*a, **kw)
+
+        def counted_step_math(arena, t, *, P0, P, ranked=False, **kw):
+            steps[ranked] += 1
+            T, G, F = t["start"].shape
+            n, rows = shapes.get((G, F, P0, P), (0, 0))
+            shapes[G, F, P0, P] = (n + 1, rows + T)
+            return step_math(arena, t, P0=P0, P=P, ranked=ranked, **kw)
+
+        for fn in counters.values():
+            fn.launches = 0
+        dist.all_reduce, ss.bucket_step_math = (counted_all_reduce,
+                                                counted_step_math)
+        lat, got = {}, {}
+        try:
+            for batch in warm:
+                serve.search_batch(batch)
+            torch.cuda.synchronize()
+            for k in ex.timings:
+                ex.timings[k] = 0.0
+            split = {}
+            for kind, bl in kinds.items():
+                t_kind = dict(ex.timings)
+                for batch in bl:
+                    t0 = time.perf_counter()
+                    out = serve.search_batch(batch)
+                    torch.cuda.synchronize()
+                    lat.setdefault(kind, []).append(time.perf_counter() - t0)
+                    got.setdefault(kind, []).extend(out)
+                split[kind] = {k: v - t_kind[k] for k, v in ex.timings.items()}
+        finally:
+            dist.all_reduce, ss.bucket_step_math = all_reduce, step_math
+        launches = {k: fn.launches for k, fn in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+
+        mismatches = {}
+        for kind in kinds:
+            check(len(got[kind]) == len(want[kind]),
+                  f"serve {kind}: {len(got[kind])} responses, "
+                  f"{len(want[kind])} from the engine")
+            mismatches[kind] = sum(not all(same(w, g, f) for f in fields)
+                                   for w, g in zip(want[kind], got[kind]))
+        ranked = next(g for kind in kinds for g in got[kind]
+                      if g.ranked and len(g.doc_scores))
+        flipped = ranked.doc_scores.copy()
+        flipped.view(np.int32)[int(np.argmin(flipped))] ^= 1
+        control = dataclasses.replace(ranked, doc_scores=flipped)
+        control_refused = not all(same(ranked, control, f) for f in fields)
+        say("serve_check", **{f"{k}_mismatches": v
+                              for k, v in mismatches.items()},
+            flipped_score_refused=control_refused)
+        check(all(v == 0 for v in mismatches.values()),
+              f"serve responses differ from the engine's: {mismatches}")
+        check(control_refused, "the serve comparison took a response whose "
+                               "lowest score has its last bit flipped")
+        check(all(v > 0 for v in launches.values()),
+              f"a search kernel never launched in the serve phase: {launches}")
+        n_steps = steps[False] + steps[True]
+        check(ex.slab_stats["steps"] == n_steps,
+              f"serve steps: {ex.slab_stats['steps']} counted, {n_steps} run")
+        check(ex.collectives == reduce_calls[0]
+              == steps[False] + 2 * steps[True],
+              f"collectives: {ex.collectives} counted, {reduce_calls[0]} "
+              f"all_reduce calls, {steps[False]} steps + {steps[True]} "
+              f"ranked steps")
+        for kind, ls in lat.items():
+            n_req = sum(len(b) for b in kinds[kind])
+            e = engine_lat[kind]
+            say("serve_path", kind=kind, batches=len(ls), requests=n_req,
+                qps=f"{n_req / sum(ls):.1f}",
+                batch_p50_ms=f"{percentile(ls, 50) * 1e3:.2f}",
+                batch_p99_ms=f"{percentile(ls, 99) * 1e3:.2f}",
+                engine_batch_p50_ms=f"{percentile(e, 50) * 1e3:.2f}",
+                engine_batch_p99_ms=f"{percentile(e, 99) * 1e3:.2f}",
+                **{f"{k}_s": f"{v:.4f}" for k, v in split[kind].items()})
+        st = ex.slab_stats
+        say("serve_slab", **st,
+            live_row_share=f"{st['live_rows'] / max(st['slab_rows'], 1):.4f}",
+            live_elem_share=f"{st['live_elems'] / max(st['slab_elems'], 1):.4f}",
+            tiers=json.dumps(ex._tiers, separators=(",", ":")))
+        say("serve_step_shapes", **{
+            "x".join(map(str, k)): f"{n}steps/{rows}rows"
+            for k, (n, rows) in sorted(shapes.items())})
+        say("serve_launches", **launches, collectives=ex.collectives,
+            steps=st["steps"], ranked_steps=steps[True])
+        say("serve_memory", arena_device_bytes=ex.arena_nbytes(),
+            max_memory_allocated=peak)
+        del serve, ex
+
+        # the search launcher's closed loop on the card
+        for argv in (["--mode", "search", "--queries", "32"],
+                     ["--mode", "search", "--queries", "32", "--ranked"]):
+            t0 = time.perf_counter()
+            launcher.main(argv)
+            say("serve_launcher", argv=json.dumps(" ".join(argv)),
+                seconds=f"{time.perf_counter() - t0:.1f}")
+    finally:
+        dist.destroy_process_group()
+    return launches
 
 
 # ---------------------------------------------------------------------------

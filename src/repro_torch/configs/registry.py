@@ -1,9 +1,10 @@
 """Architecture registry of the port: --arch <id> resolves here.
 
 A copy of src/repro/configs/registry.py for the architectures the port has
-(the dense decoder LMs and the four recsys models).  Every other
-architecture of the reference raises in `get_arch`, naming the ROADMAP.md
-item that ports it; none gets a stand-in.
+(the dense decoder LMs, the four recsys models and the search system
+`veretennikov`, whose serve tier `launch/serve.py --mode search` drives).
+Every other architecture of the reference raises in `get_arch`, naming the
+ROADMAP.md item that ports it; none gets a stand-in.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ _MODULES = {
     "mind": "repro_torch.configs.mind",
     "autoint": "repro_torch.configs.autoint",
     "bst": "repro_torch.configs.bst",
+    "veretennikov": "repro_torch.configs.veretennikov",
 }
 
 # what ports the rest (ROADMAP.md, "Open items", queue 1)
@@ -34,7 +36,6 @@ _NOT_PORTED = {
     "granite-moe-1b-a400m": "item 10 (models/moe.py)",
     "moonshot-v1-16b-a3b": "item 10 (models/moe.py)",
     "gin-tu": "item 10 (models/gnn.py)",
-    "veretennikov": "item 6 (serve/search_serve.py)",
 }
 
 

@@ -115,7 +115,10 @@ class BatchDeviceIndex:
     decoded on the device by ops.unpack_postings.  Each stream is padded to
     a BLOCK multiple so stream bases stay block-aligned; the raw
     `arena_*_np` columns are kept host-side only (shard segmentation and
-    build stats) and never shipped.
+    build stats, and the serve tier's per-dp-shard re-packing) and never
+    shipped.  The device copy (`device_arena`) is made at first use: the
+    serve tier builds its per-shard arenas from the numpy columns and never
+    holds the global arena on the device.
 
     `docs_per_shard` sets the doc-shard granularity of the segmented gather
     (≤ fetch_tables.DOCS_PER_SHARD so packed int32 keys can't overflow);
@@ -132,7 +135,7 @@ class BatchDeviceIndex:
         m = index.multi_key.arena_columns()
         o = index.ordinary
 
-        docs, poss, dists = [], [], []
+        docs, poss, dists, reals = [], [], [], []
         self.bases = {}
         off = 0
         for name, doc, pos, dist in (
@@ -151,13 +154,23 @@ class BatchDeviceIndex:
             dists.append(pad_block_multiple(
                 np.asarray(dist, np.int8) if dist is not None
                 else np.zeros(len(doc), np.int8), n_pad))
+            real = np.zeros(n_pad, bool)
+            real[:len(doc)] = True
+            reals.append(real)
         self.arena_doc_np = np.concatenate(docs)
+        self.arena_pos_np = np.concatenate(poss)
+        self.arena_dist_np = np.concatenate(dists)
+        # pads (stream tails, and the multi stream's internal pair pad) never
+        # enter a serve dp shard's selection
+        self.arena_real_np = np.concatenate(reals)
+        self.arena_real_np[self.bases["multi"]:
+                           self.bases["multi"]
+                           + index.multi_key.pair_pad][
+            index.multi_key.pairs.n_postings:] = False
         self.packed = concat_packed([packed[n] for n in self.bases])
         self.near_stop_np = np.asarray(index.basic.near_stop, np.int16)
         self.device = torch.device(device)
-        self.device_arena = arena_tensors(self.packed, self.device)
-        self.device_arena["near_stop"] = torch.from_numpy(
-            self.near_stop_np).to(self.device)
+        self._dev_arena = None
         self.max_distance = int(index.basic.max_distance)
         self.n_docs = int(max((int(d.max()) + 1 for d in docs if len(d)),
                               default=0))
@@ -166,8 +179,8 @@ class BatchDeviceIndex:
         # widest |dist| any pivot_from_dist fetch can add to a position
         # (expanded reach / multi-key NeighborDistance) — part of the
         # 17-bit packed-key safety budget
-        self.max_shift = int(max(np.abs(d.astype(np.int32)).max(initial=0)
-                                 for d in dists))
+        self.max_shift = int(np.abs(self.arena_dist_np.astype(np.int32))
+                             .max(initial=0))
         if docs_per_shard is None:
             # auto-pick the segmentation grain from posting-list stats:
             # results are identical at any grain
@@ -175,12 +188,22 @@ class BatchDeviceIndex:
             docs_per_shard = auto_docs_per_shard(self.n_docs,
                                                  index.max_posting_run())
         self.docs_per_shard = max(1, min(docs_per_shard, DOCS_PER_SHARD))
+        self.n_shards = max(1, -(-self.n_docs // self.docs_per_shard))
+
+    @property
+    def device_arena(self) -> dict:
+        """The packed block arena (`lanes`, `blk_meta`) and the stream-3
+        `near_stop` slots as tensors on the device, copied at first use."""
+        if self._dev_arena is None:
+            self._dev_arena = arena_tensors(self.packed, self.device)
+            self._dev_arena["near_stop"] = torch.from_numpy(
+                self.near_stop_np).to(self.device)
+        return self._dev_arena
 
     def device_nbytes(self) -> int:
         """Bytes the device arena holds (packed lanes + block metadata +
         stream-3 slots)."""
-        return sum(t.numel() * t.element_size()
-                   for t in self.device_arena.values())
+        return self.packed.nbytes() + self.near_stop_np.nbytes
 
 
 @dataclasses.dataclass
@@ -215,6 +238,7 @@ class _RowGroup:
 class _Row:
     """One (task × doc shard) execution row of the fetch tables."""
     task: _Task
+    shard: int             # doc-shard id (0 when unsharded)
     shard_base: int        # first doc of the shard (re-basing origin)
     groups: list           # seed-first ordered _RowGroups, shard-clipped
     sortfree: bool = False  # constraint keys already ascending (see below)
@@ -410,13 +434,21 @@ class BatchExecutor:
             - self.dev.max_pos - max(self.dev.max_distance,
                                      self.dev.max_shift)
 
-    # -- tensorization (the caps are read at call time: tests shrink them)
+    # -- tensorization ------------------------------------------------------
+
+    def _caps(self):
+        """(g_cap, f_cap, split_cap, p0_cap, p_cap): the module globals,
+        read at call time so that tests can shrink them; the serve executor
+        returns its fixed table limits (p0_cap the seed pad, p_cap the
+        constraint pad)."""
+        return G_CAP, F_CAP, F_SPLIT_CAP, P_CAP, P_CAP
 
     def _task_fits(self, groups, kword: bool = False) -> bool:
-        if len(groups) > G_CAP:
+        g_cap, f_cap, _, _, _ = self._caps()
+        if len(groups) > g_cap:
             return False
         for g in groups:
-            if len(g.fetches) > F_CAP:
+            if len(g.fetches) > f_cap:
                 return False
             if int(g.band) > self._pos_budget:
                 return False
@@ -433,11 +465,13 @@ class BatchExecutor:
         """Segment a task at doc-shard boundaries: one row per shard the
         SEED group touches, every fetch clipped to the shard's sub-slice
         (the arena is doc-sorted per fetch, so a shard's rows are one
-        `searchsorted` away).  Fetches longer than P_CAP split across extra
-        F slots of the same group (slot unions).  None => plan goes flex."""
+        `searchsorted` away).  Fetches longer than the seed's p0_cap or a
+        constraint's p_cap split across extra F slots of the same group
+        (slot unions).  None => plan goes flex."""
         d = self.dev
         dps = d.docs_per_shard
-        cap = max(1, P_CAP)
+        _, _, split_cap, p0_cap, p_cap = self._caps()
+        p0_cap, p_cap = max(1, p0_cap), max(1, p_cap)
         if max(d.n_docs - 1, 0) // dps == 0:      # one shard
             per_group = [{0: [(f, d.bases[f.stream] + f.start, f.length)
                               for f in g.fetches]} for g in ordered]
@@ -468,6 +502,7 @@ class BatchExecutor:
         for sh in seed_shards:
             groups, sortfree = [], True
             for gi in range(len(ordered)):
+                cap = p0_cap if gi == 0 else p_cap
                 slots = []
                 for f, s, ln in per_group[gi].get(sh, ()):
                     while ln > cap:
@@ -475,7 +510,7 @@ class BatchExecutor:
                         s += cap
                         ln -= cap
                     slots.append((f, s, ln))
-                if len(slots) > F_SPLIT_CAP:
+                if len(slots) > split_cap:
                     return None
                 if gi > 0:
                     # sort-free: a single unsplit slot gathers ascending keys
@@ -491,7 +526,7 @@ class BatchExecutor:
                                 or f.pivot_from_dist):
                             sortfree = False
                 groups.append(_RowGroup(band=int(ordered[gi].band), slots=slots))
-            rows.append(_Row(task=task, shard_base=sh * dps,
+            rows.append(_Row(task=task, shard=sh, shard_base=sh * dps,
                              groups=groups, sortfree=sortfree))
         return rows
 

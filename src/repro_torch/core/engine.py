@@ -43,7 +43,9 @@ from repro_torch.core.planner import (FetchGroup, MODE_NEAR, MODE_PHRASE,
 class _BatchSearchMixin:
     """Shared lazy batch-executor plumbing: the batched arena duplicates the
     posting streams on the device, so per-query-only users never pay for
-    it."""
+    it.  The batch executor is built at the first `search_batch` (or the
+    first read of `batch_executor`), and its device arena is copied at the
+    first bucket step (`BatchDeviceIndex.device_arena`)."""
 
     def _init_executors(self, index: IndexSet, device, docs_per_shard):
         self.index = index
@@ -88,17 +90,30 @@ class AdditionalIndexEngine(_BatchSearchMixin):
     `search_batch([SearchRequest, ...])` runs a whole batch through the
     batched executor (identical results — see batch_executor.py).
     `device=None` means the card; pass `device="cpu"` to run on the CPU.
+    `occ_counts` gives the planner cluster-wide occurrence statistics when
+    this engine holds one doc shard of a larger corpus (see Planner).
     """
 
     def __init__(self, index: IndexSet, device=None,
-                 docs_per_shard: int | None = None):
-        self.planner = Planner(index)
+                 docs_per_shard: int | None = None, occ_counts=None):
+        self.planner = Planner(index, occ_counts=occ_counts)
         self._init_executors(index, device, docs_per_shard)
+
+    def refresh_occ_counts(self, occ_counts=None):
+        """Re-snapshot the planner's pivot statistics (see
+        Planner.refresh_occ_counts)."""
+        self.planner.refresh_occ_counts(occ_counts)
 
     def plan_request(self, request: SearchRequest) -> QueryPlan:
         return self.planner.plan(list(request.surface_ids),
                                  mode=request.mode, window=request.window,
                                  ranked=request.rank)
+
+    def plan(self, surface_ids, mode: str = MODE_PHRASE,
+             window: int | None = None, ranked: bool = False) -> QueryPlan:
+        """Host-side plan introspection (not a search entry point)."""
+        return self.planner.plan(list(surface_ids), mode=mode, window=window,
+                                 ranked=ranked)
 
 
 class OrdinaryEngine(_BatchSearchMixin):

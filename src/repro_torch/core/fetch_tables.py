@@ -47,6 +47,7 @@ membership (band 0 = precise phrase, band W = word-set window).
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core.postings import NS_SHIFT
 # ranked scoring: constraint keys sort as (key << SCORE_DELTA_BITS | delta)
@@ -62,6 +63,32 @@ NO_MAX_ABS = np.int32(2**20)   # |dist| cap wildcard (always satisfied)
 
 # doc_local must fit (30 - TABLE_POS_BITS) bits so packed keys stay < 2**30
 DOCS_PER_SHARD = 1 << (30 - TABLE_POS_BITS)
+
+
+def batch_table_specs(T: int, G: int, F: int, C: int, M: int,
+                      owner: bool = False) -> dict:
+    """{name: (shape, torch dtype)} matching alloc_batch_tables, plus the
+    serve tier's per-row `owner` column (the row's dp shard) when asked."""
+    i32, b8 = torch.int32, torch.bool
+    specs = {
+        "start": ((T, G, F), i32),
+        "length": ((T, G, F), i32),
+        "offset": ((T, G, F), i32),
+        "req_dist": ((T, G, F), i32),
+        "max_abs": ((T, G, F), i32),
+        "pivot_from_dist": ((T, G, F), b8),
+        "score_from_dist": ((T, G, F), b8),
+        "band": ((T, G), i32),
+        "active": ((T, G), b8),
+        "doc_task": ((T,), b8),
+        "shard_base": ((T,), i32),
+        "score_bias": ((T,), torch.float32),
+        "ns_packed": ((T, C, M), torch.int16),
+        "ns_valid": ((T, C, M), b8),
+    }
+    if owner:
+        specs["owner"] = ((T,), i32)
+    return specs
 
 
 def alloc_batch_tables(T: int, G: int, F: int, C: int, M: int) -> dict:

@@ -1,24 +1,100 @@
 """Serving launcher of the port.
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode search --queries 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode search --ranked --top-k 5
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode search --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --mode lm --arch llama3-8b
-    PYTHONPATH=src python -m repro_torch.launch.serve --mode lm --device cpu
 
+  search — (the default) build the paper's indexes over a synthetic corpus
+           (300 documents) and time a closed loop: one warm-up batch, then
+           one timed batch of `--queries` requests through `SearchServe`
+           on a one-rank mesh (launch/mesh.py): the reference's
+           `serve_search`.  `--ranked` asks near queries with proximity
+           ranking.  The open loop (`--qps`) needs the front door, which is
+           not ported yet (ROADMAP.md queue 1, item 7).
   lm     — greedy decode from the architecture's smoke config with the KV
            cache decode step (`decode_step`, attention through the
            flash-decode kernel), batch 2, cache of 128 positions: the
-           reference's `serve_lm`.  Runs on the card unless `--device cpu`.
-  search — not ported yet: it needs the serve tier (ROADMAP.md).
+           reference's `serve_lm`.
+
+Both run on the card unless `--device cpu`.
 """
 from __future__ import annotations
 
 import argparse
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.configs.registry import get_arch
 from repro_torch.core.executor import resolve_device
 from repro_torch.models import transformer as tfm
+
+
+def _search_world(n_queries: int, ranked: bool, top_k: int):
+    """The launcher's synthetic serving world: lexicon, corpus, full index
+    set, and a repeatable workload of `n_queries` requests (phrase queries
+    of 3 consecutive words, or ranked near queries of every other word)."""
+    from repro_torch.core import (CorpusConfig, LexiconConfig, MODE_NEAR,
+                                  SearchRequest, build_all, generate_corpus,
+                                  make_lexicon_and_analyzer)
+    lex_cfg = LexiconConfig(n_surface=20_000, n_base=15_000, n_stop=400,
+                            n_frequent=1200, seed=0)
+    lex, ana = make_lexicon_and_analyzer(lex_cfg)
+    corpus = generate_corpus(lex_cfg, CorpusConfig(n_docs=300, seed=0))
+    index = build_all(corpus, lex, ana)
+    rng = np.random.default_rng(0)
+    requests = []
+    while len(requests) < n_queries:
+        d = int(rng.integers(corpus.n_docs))
+        toks = corpus.doc(d)
+        if len(toks) < 10:
+            continue
+        st = int(rng.integers(len(toks) - 6))
+        if ranked:
+            requests.append(SearchRequest(toks[st:st + 6:2].tolist(),
+                                          mode=MODE_NEAR, rank=True,
+                                          top_k=top_k))
+        else:
+            requests.append(SearchRequest(toks[st:st + 3].tolist()))
+    return index, requests
+
+
+def serve_search(n_queries: int, ranked: bool = False, top_k: int = 10,
+                 device=None) -> list:
+    """Closed-loop serving of the synthetic world's requests: one warm-up
+    batch, one timed batch; returns the timed batch's responses."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serve.search_serve import SearchServe, SearchServeConfig
+    mesh = make_host_mesh(data=1, model=1, device=device)
+    index, requests = _search_world(n_queries, ranked, top_k)
+    cfg = SearchServeConfig(queries=n_queries, postings_pad=8192,
+                            seed_pad=2048, n_basic=1, n_expanded=1,
+                            n_stop=1, n_first=1, n_multi=1)
+    serve = SearchServe(index, cfg, mesh)
+    serve.search_batch(requests)                    # warm
+    sync = (torch.cuda.synchronize if mesh.device.type == "cuda"
+            else lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    results = serve.search_batch(requests)
+    sync()
+    dt = time.perf_counter() - t0
+    where = (torch.cuda.get_device_name(mesh.device)
+             if mesh.device.type == "cuda" else "CPU")
+    label = "ranked top-%d" % top_k if ranked else "phrase"
+    print(f"[serve/search] {n_queries} {label} queries in {dt * 1e3:.1f} ms "
+          f"({dt / max(n_queries, 1) * 1e6:.0f} us/query, {where}, "
+          f"{serve.n_dp} doc shard(s)); "
+          f"hit counts: {[len(r.doc) for r in results[:8]]}...")
+    if ranked:
+        r = next((r for r in results if r.doc_ids is not None
+                  and len(r.doc_ids)), None)
+        if r is not None:
+            print(f"[serve/search] sample ranking: "
+                  f"{[(h.doc, round(h.score, 3)) for h in r.hits[:5]]}")
+    return results
 
 
 def serve_lm(arch: str, n_tokens: int, device=None) -> list:
@@ -50,17 +126,27 @@ def serve_lm(arch: str, n_tokens: int, device=None) -> list:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--mode", choices=["search", "lm"], default="lm")
+    ap.add_argument("--mode", choices=["search", "lm"], default="search")
     ap.add_argument("--arch", default="llama3-8b")
+    ap.add_argument("--queries", type=int, default=16)
     ap.add_argument("--tokens", type=int, default=32)
+    ap.add_argument("--ranked", action="store_true",
+                    help="near-mode queries with proximity ranking")
+    ap.add_argument("--top-k", type=int, default=10)
+    ap.add_argument("--qps", type=float, default=0.0,
+                    help="open-loop arrival rate (not ported yet)")
     ap.add_argument("--device", default=None,
                     help="'cpu' to run on the CPU (default: the card)")
     args = ap.parse_args(argv)
     if args.mode == "search":
-        raise NotImplementedError(
-            "--mode search needs the serve tier, which is not ported yet "
-            "(ROADMAP.md queue 1, items 6 and 9)")
-    serve_lm(args.arch, args.tokens, device=args.device)
+        if args.qps > 0:
+            raise NotImplementedError(
+                "--qps (the open loop) needs the front door, which is not "
+                "ported yet (ROADMAP.md queue 1, item 7)")
+        serve_search(args.queries, ranked=args.ranked, top_k=args.top_k,
+                     device=args.device)
+    else:
+        serve_lm(args.arch, args.tokens, device=args.device)
 
 
 if __name__ == "__main__":

@@ -326,7 +326,7 @@ def test_configs_match_reference(arch):
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "moonshot-v1-16b-a3b",
-                                  "gin-tu", "veretennikov"])
+                                  "gin-tu"])
 def test_unported_archs_raise_naming_the_roadmap(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         get_arch(arch)

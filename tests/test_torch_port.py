@@ -242,9 +242,11 @@ def test_lm_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, capsys):
     assert tfm.Transformer(cfg, device="cpu").device.type == "cpu"
     assert len(serve_lm("llama3-8b", 2, device="cpu")) == 2
     assert "cpu" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        from repro_torch.launch.serve import main
+    from repro_torch.launch.serve import main
+    with pytest.raises(RuntimeError, match="CUDA"):
         main(["--mode", "search"])
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        main(["--mode", "search", "--qps", "50"])
 
 
 @pytest.mark.parametrize("cls", [AdditionalIndexEngine, OrdinaryEngine])
