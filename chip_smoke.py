@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (src/repro_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--docs N] [--seed S] [--lm-arch A] [--lm-batch B]
-                          [--lm-prompt P] [--lm-steps T]
+    python3 chip_smoke.py [--docs N] [--seed S] [--segment-docs D]
+                          [--lm-arch A] [--lm-batch B] [--lm-prompt P]
+                          [--lm-steps T]
     python3 chip_smoke.py --ab PARENT . . PARENT     # see run_ab
     python3 chip_smoke.py --ab-attention PARENT . . PARENT
                                                      # see run_ab_attention
@@ -40,7 +41,9 @@ Phases, each reported on its own lines:
    stop-heavy near batch, and two K-word batches (K in {3, 4, 5}, ~10%
    with windows wider than 15 that ride the flexible path; the second
    ranked).  Every response is checked field by field (scores included)
-   against the same engine on the CPU; the first 16 unranked ones and the
+   against the same engine on the CPU (a job per batch in the forked
+   workers, one torch thread each);
+   the first 16 unranked ones and the
    first 8 of every new batch against the brute-force oracles; all four
    kernels' launch counters must rise in this phase; every intersect and
    delta-mask call of the phase is logged (no copies, no launches) and
@@ -57,6 +60,27 @@ Phases, each reported on its own lines:
    ladder, the arena's device bytes and peak memory; then the search
    launcher's closed loop (`launch/serve.py --mode search`, unranked and
    `--ranked`);
+4c. front door and segments — (a) `FrontDoor(index, device="cuda")` over
+   the same index, one shard: every batch of phase 4 through
+   `search_batch`, each response SERVED_EXACT and equal to the additional
+   engine's field by field (`subplan_pos_hits` too), one batch again from
+   the cache; (b) four doc shards with replicas (`build_doc_shards`, a
+   host build made while phase 4's CPU check runs in the workers): the
+   same batches, equal with `postings_read`, then `ChaosShard` faults on
+   a few requests of each kind (primary down with a replica: exact; shard
+   dead: degraded to the live doc ranges; shard stalled: degraded, then
+   backfilled into the cache; all down: no_shards) and a control (a merge
+   that lost a hit is refused); (c) the launcher's open loop (`--qps 50
+   --duration 5`, unranked and ranked), then (a)'s shard under Poisson
+   arrivals at half the engine's unranked QPS for 10 s (deadline 1000 ms,
+   cache off): offered QPS, p50 / p95 / p99, exact / degraded / shed;
+   (d) a `SegmentManager` over the first `--segment-docs` documents
+   (1000; a cut depth, printed with its reason): the union and the merge
+   equal a one-shot engine, the merged index equals the one-shot build
+   array by array, and a front over the manager sees a 4th ingest.  Every
+   run that injects no fault must be all SERVED_EXACT with no failed or
+   re-dispatched shard call, and the four search kernels' counters must
+   rise;
 5. LM kernels — with the search phases' memory handed back, `--lm-arch`
    (llama3-8b) at full width in bf16 with random weights from --seed; each
    kernel's design at the path's shapes (the decode's split of the cache;
@@ -114,7 +138,8 @@ Phases, each reported on its own lines:
 
 Any failed check exits non-zero.  Before the last line it prints one
 `kernels` JSON line for all seven kernels (the search kernels' `launches`
-count phases 4 and 4b, `serve_launches` phase 4b alone); the last line of
+count phases 4, 4b and 4c, `serve_launches` phase 4b alone,
+`front_launches` phase 4c alone); the last line of
 standard output
 is `{"ok": true, "device": {...}}`.  Without a CUDA device, or without the
 repository's sources beside it, the script fails without a result.
@@ -452,6 +477,22 @@ def _oracle(i):
     return fn(corpus, index, r.surface_ids, mode=r.mode, window=r.window)
 
 
+_CPU_ENGINES = {}     # a forked worker's engines on the CPU, by kind
+
+
+def _cpu_answers(kind, batch):
+    """The `kind` engine (additional or ordinary) over the oracle's index on
+    the CPU, one torch thread, answering `batch` (a forked worker runs it
+    and keeps the engine; the card's answers are held to these)."""
+    import torch
+    from repro_torch.core import AdditionalIndexEngine, OrdinaryEngine
+    if kind not in _CPU_ENGINES:
+        torch.set_num_threads(1)
+        cls = AdditionalIndexEngine if kind == "additional" else OrdinaryEngine
+        _CPU_ENGINES[kind] = cls(_ORACLE["index"], device="cpu")
+    return _CPU_ENGINES[kind].search_batch(batch)
+
+
 def oracle_mismatch(r, resp, want, rtol=1e-4) -> bool:
     """True when response `resp` to request `r` disagrees with the oracle's
     answer `want`: anchor (or doc-level) sets exactly, ranked anchor and
@@ -657,6 +698,7 @@ def search_phases(args, stack, np, torch, t_phase) -> list:
     from repro_torch.kernels.intersect import (banded_delta_mask_rows_info,
                                                banded_intersect_rows_info,
                                                banded_min_delta_rows_info)
+    from repro_torch.serve.front import build_doc_shards
 
     # -- 2. index -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -691,6 +733,10 @@ def search_phases(args, stack, np, torch, t_phase) -> list:
     pool = stack.enter_context(ProcessPoolExecutor(
         max_workers=min(8, os.cpu_count() or 1),
         mp_context=multiprocessing.get_context("fork")))
+    # phase 4c's one-shot index over the segments' documents, built here
+    # while the card phases run and collected with the oracle
+    seg_future = pool.submit(_head_index,
+                             min(args.segment_docs, corpus.n_docs - 1))
     oracle_futures = [pool.submit(_oracle, i) for i in range(len(oracle_reqs))]
 
     torch.cuda.reset_peak_memory_stats()
@@ -868,7 +914,8 @@ def search_phases(args, stack, np, torch, t_phase) -> list:
         banded_min_delta_rows=f"a{tuple(md[0].shape)}b{tuple(md[1].shape)}",
         banded_delta_mask_rows=f"a{tuple(dm[0].shape)}b{tuple(dm[1].shape)}")
     t_phase = phase_done("kernels", t_phase)
-    oracle = [f.result() for f in oracle_futures]    # workers idle from here
+    oracle = [f.result() for f in oracle_futures]
+    seg_index = seg_future.result()                  # workers idle from here
     # the index and the oracle's answers are set-up data: collect now and
     # keep the collector off them, so that no full collection over them
     # pauses a timed batch
@@ -949,24 +996,34 @@ def search_phases(args, stack, np, torch, t_phase) -> list:
                     and wv.dtype == gv.dtype and np.array_equal(wv, gv))
         return wv == gv
 
+    # the same batches through each engine on the CPU, a job per batch in
+    # the forked workers; the heaviest first: the ordinary engine's (ten
+    # times the additional's work), K-word batches leading
+    seq = batches[1:] + [stop_batch] + [b for bl in kinds.values() for b in bl]
+    t0 = time.perf_counter()
+    cpu_jobs = {name: [None] * len(seq) for name in engines}
+    for name in ("ordinary", "additional"):
+        for i in reversed(range(len(seq))):
+            cpu_jobs[name][i] = pool.submit(_cpu_answers, name, seq[i])
+    # phase 4c (b)'s four doc shards with replicas: an untimed host build,
+    # made here while the workers check the main path (the shard engines
+    # hold their flex arenas on the card from here on)
+    t1 = time.perf_counter()
+    shards = [build_doc_shards(corpus, index, 4, replicate=True,
+                               device="cuda")]
+    shard_build_s = time.perf_counter() - t1
     mismatches, cpu_s = {}, {}
-    for name, eng in engines.items():
-        t0 = time.perf_counter()
-        cpu = type(eng)(index, device="cpu")
-        want = [r for i in range(1, n_b + 1)
-                for r in cpu.search_batch(batches[i])]
-        want += cpu.search_batch(stop_batch)
+    for name in engines:
+        want = [r for f in cpu_jobs[name] for r in f.result()]
         got = list(results[name])
-        for kname, bl in kinds.items():
-            for batch in bl:
-                want += cpu.search_batch(batch)
+        for kname in kinds:
             got += kind_out[name, kname]
+        check(len(want) == len(got), "response counts differ")
         mismatches[f"{name}_vs_cpu"] = sum(
             not all(same(w, g, f) for f in fields) for w, g in zip(want, got))
-        check(len(want) == len(got), "response counts differ")
-        del cpu
         cpu_s[f"{name}_s"] = f"{time.perf_counter() - t0:.1f}"
-    say("cpu_check", **cpu_s)
+    say("cpu_check", **cpu_s, jobs=2 * len(seq),
+        shard_build_s=f"{shard_build_s:.1f}")
     t_phase = phase_done("cpu_check", t_phase)
     checked = results["additional"][:16] + [
         r for kname, bl in kinds.items()
@@ -1032,6 +1089,14 @@ def search_phases(args, stack, np, torch, t_phase) -> list:
         engine_lat, counters, fields + ("anchor_subplans",), same)
     t_phase = phase_done("serve", t_phase)
 
+    # -- 4c. the front door, its faults and segments ---------------------------
+    front_launches = front_phase(
+        args, np, torch, corpus, index, engines["additional"],
+        [batches[0]] + warmups,
+        {"unranked": batches[1:], "stop_near": [stop_batch], **kinds}, want,
+        engine_lat, counters, same, seg_index, shards, shard_build_s)
+    t_phase = phase_done("front", t_phase)
+
     replaces = {"unpack_postings": "src/repro/kernels/unpack.py:39",
                 "banded_intersect_rows": "src/repro/kernels/intersect.py:58",
                 "banded_min_delta_rows": "src/repro/kernels/intersect.py:117",
@@ -1047,8 +1112,10 @@ def search_phases(args, stack, np, torch, t_phase) -> list:
                         "source": "src/repro_torch/kernels/csrc/"
                                   + sources[name],
                         "replaces": replaces[name],
-                        "launches": launches[name] + serve_launches[name],
+                        "launches": launches[name] + serve_launches[name]
+                        + front_launches[name],
                         "serve_launches": serve_launches[name],
+                        "front_launches": front_launches[name],
                         "max_abs_err": err[name], "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": b_ms,
                         "bound_by": b_by, "library_ms": None})
@@ -1218,6 +1285,510 @@ def serve_phase(np, torch, index, warm, kinds, want, engine_lat, counters,
                 seconds=f"{time.perf_counter() - t0:.1f}")
     finally:
         dist.destroy_process_group()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# the front door, its faults and segments
+# ---------------------------------------------------------------------------
+
+FRONT_FIELDS = ("doc", "pos", "postings_read", "used_fallback", "doc_only",
+                "subplan_types", "subplan_pos_hits", "ranked",
+                "anchor_scores", "doc_ids", "doc_scores")
+# across doc shards or segments: `subplan_pos_hits` counts a subplan's keys
+# before the merge's dedup, and each shard seeds with its own rarest group
+# (shard-local list lengths), so the count can differ from the unsharded
+# engine's while the answer is the same (in the reference too); the merge
+# reads only whether it is zero
+SHARD_FIELDS = tuple(f for f in FRONT_FIELDS if f != "subplan_pos_hits")
+GENEROUS = dict(default_deadline_ms=600_000.0, shard_timeout_s=600.0)
+SEGMENT_CUT = ("segments cut to the first --segment-docs documents of the "
+               "corpus: the manager's ingests and merge are two more host "
+               "builds of them (a third, the one-shot index, runs in a "
+               "worker); on an H100 machine a 6000-doc build took 134-193 s "
+               "and, at 1500 documents, the whole run 952.7-1025.4 s of its "
+               "1200 s limit")
+
+
+def doc_range(corpus, lo, hi):
+    """Documents [lo, hi) of `corpus` as a corpus of their own."""
+    offs = corpus.doc_offsets
+    return type(corpus)(doc_offsets=(offs[lo:hi + 1] - offs[lo]).copy(),
+                        tokens=corpus.tokens[offs[lo]:offs[hi]].copy())
+
+
+def _head_index(n):
+    """The one-shot index over the first n documents of the oracle's corpus
+    (a forked worker builds it while the card phases run)."""
+    from repro_torch.core import build_all
+    corpus, index = _ORACLE["corpus"], _ORACLE["index"]
+    return build_all(doc_range(corpus, 0, n), index.lexicon, index.analyzer,
+                     index.params)
+
+
+def same_tree(np, a, b, path="index"):
+    """The path of the first difference between two index objects (arrays
+    equal in dtype, shape and value), or None."""
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        ok = (isinstance(a, np.ndarray) and isinstance(b, np.ndarray)
+              and a.dtype == b.dtype and a.shape == b.shape
+              and np.array_equal(a, b))
+        return None if ok else path
+    if isinstance(a, (tuple, list)):
+        if type(a) is not type(b) or len(a) != len(b):
+            return path
+        pairs = [(x, y, f"{path}[{i}]") for i, (x, y) in enumerate(zip(a, b))]
+    elif isinstance(a, dict):
+        if list(a) != list(b):
+            return path
+        pairs = [(a[k], b[k], f"{path}[{k!r}]") for k in a]
+    elif hasattr(a, "__dict__"):
+        if type(a) is not type(b) or list(vars(a)) != list(vars(b)):
+            return path
+        pairs = [(getattr(a, k), getattr(b, k), f"{path}.{k}")
+                 for k in vars(a)]
+    else:
+        return None if a == b else path
+    for x, y, p in pairs:
+        diff = same_tree(np, x, y, p)
+        if diff is not None:
+            return diff
+    return None
+
+
+def close_front(front):
+    """Close a front door and join its dispatcher's pool: no stalled shard
+    call outlives its scenario."""
+    front.close()
+    front.dispatcher._pool.shutdown(wait=True)
+
+
+def fault_free(front, resps, what):
+    """The checks every front-door run that injects no fault must pass (a
+    failed kernel launch would otherwise pass as a degraded answer): every
+    response exact, no shard call failed or re-dispatched, nothing
+    degraded or shed, the ledger balanced."""
+    st, ds = front.stats, front.dispatcher.stats
+    bad = [(r.status, r.shed_reason) for r in resps
+           if r.status != "SERVED_EXACT"]
+    check(not bad, f"{what}: {len(bad)} responses not SERVED_EXACT: "
+                   f"{bad[:4]}")
+    check(ds.failed == 0 and ds.redispatched == 0,
+          f"{what}: shard calls failed ({ds})")
+    check(st.served_degraded == 0 and st.shed == 0
+          and "internal_error" not in st.shed_reasons,
+          f"{what}: degraded {st.served_degraded}, shed {st.shed} "
+          f"{st.shed_reasons}")
+    check(st.submitted == st.responded == st.served_exact > 0,
+          f"{what}: {st.submitted} submitted, {st.responded} responded, "
+          f"{st.served_exact} exact")
+
+
+def front_threads(front, backends, batches):
+    """`--front-threads` (a diagnostic, off by default): what the
+    dispatcher's threads cost on `batches`: each batch with the shards
+    called one after another in this thread, and through `front` with a
+    0.1 ms switch interval (5 ms by default)."""
+    serial, fast_switch = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        for b in backends:
+            b(batch)
+        serial.append(time.perf_counter() - t0)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-4)
+    try:
+        for batch in batches:
+            t0 = time.perf_counter()
+            front.search_batch(batch)
+            fast_switch.append(time.perf_counter() - t0)
+    finally:
+        sys.setswitchinterval(interval)
+    say("front_threads", kind="unranked", batches=len(serial),
+        serial_shards_batch_p50_ms=f"{percentile(serial, 50) * 1e3:.2f}",
+        switch_0p1ms_batch_p50_ms=f"{percentile(fast_switch, 50) * 1e3:.2f}")
+
+
+def front_phase(args, np, torch, corpus, index, engine, warm, kinds, want,
+                engine_lat, counters, same, seg_index, shards,
+                shard_build_s) -> dict:
+    """Phase 4c: the front door over phase 2's index, its faults, its open
+    loop and segments.  (a) `FrontDoor(index, device="cuda")`, one shard:
+    every batch of phase 4 (`kinds`, after the warm-ups `warm`) through
+    `search_batch`, each response SERVED_EXACT from shard (0,) and equal
+    to the additional engine's on the card (`engine`'s answers `want`)
+    field by field; one batch again, all from the cache.  (b)
+    `build_doc_shards(corpus, index, 4, replicate=True)` (`shards`, a
+    one-element list, built during phase 4's CPU check in
+    `shard_build_s`): the same
+    batches, equal with `postings_read` (every field but
+    `subplan_pos_hits`: SHARD_FIELDS), from shards (0, 1, 2, 3) (and,
+    with `--front-threads`, the unranked ones timed again); then
+    `ChaosShard` faults on a few requests of each kind — primary 2 fails
+    (its replica answers: exact), shard 2 dead with no replica (degraded to
+    the live doc ranges), shard 2 stalled past the dispatcher timeout
+    (degraded, then backfilled: the same requests come exact from the
+    cache), every shard down (no_shards) — and a control: a merge fed a
+    shard response with a hit removed must fail the check.  (c) the
+    launcher's open loop (`--qps 50 --duration 5`, unranked and ranked),
+    then (a)'s shard under Poisson arrivals at half the engine's unranked
+    QPS for 10 s, deadline 1000 ms, cache off.  (d) a `SegmentManager`
+    over the first `--segment-docs` documents (3 ingests): answers equal
+    a one-shot engine's over them (`seg_index`, built by a worker), the
+    merge equals the one-shot build array by array, and a front over the
+    manager sees a 4th ingest.  Runs that inject no fault must be all
+    exact with no failed shard call (the launcher's loops too; only (c)'s
+    Poisson loop at half the engine's QPS may shed or answer late under
+    load, for no other reason).  Returns the phase's launches
+    per search kernel."""
+    import dataclasses
+
+    from repro_torch.core import (AdditionalIndexEngine, SearchRequest,
+                                  SegmentManager, corpus_batches)
+    from repro_torch.dist.chaos import ChaosShard
+    from repro_torch.launch import serve as launcher
+    from repro_torch.serve.front import (FrontDoor, FrontDoorConfig,
+                                         merge_shard_responses)
+
+    def differ(w, g, fields=FRONT_FIELDS):
+        return not all(same(w, g, f) for f in fields)
+
+    def shard_differ(w, g):
+        return differ(w, g, SHARD_FIELDS)
+
+    def run_kinds(front, tag, differ=differ):
+        """Every batch of `kinds` through the front; its responses and
+        mismatches against `want` per kind, and a `front_path` line each."""
+        lat, got, formed = {}, {}, {}
+        for kind, bl in kinds.items():
+            b0 = front.stats.batches
+            for batch in bl:
+                t0 = time.perf_counter()
+                out = front.search_batch(batch)
+                lat.setdefault(kind, []).append(time.perf_counter() - t0)
+                got.setdefault(kind, []).extend(out)
+            formed[kind] = front.stats.batches - b0
+        check(all(len(got[k]) == len(want[k]) for k in kinds),
+              f"{tag}: response counts differ")
+        mism = {k: sum(map(differ, want[k], got[k])) for k in kinds}
+        for kind, ls in lat.items():
+            n_req = len(got[kind])
+            req_ms = [r.latency_ms for r in got[kind]]
+            e = engine_lat[kind]
+            say("front_path", front=tag, kind=kind, batches=len(ls),
+                requests=n_req, qps=f"{n_req / sum(ls):.1f}",
+                batch_p50_ms=f"{percentile(ls, 50) * 1e3:.2f}",
+                batch_p99_ms=f"{percentile(ls, 99) * 1e3:.2f}",
+                request_p50_ms=f"{percentile(req_ms, 50):.2f}",
+                request_p99_ms=f"{percentile(req_ms, 99):.2f}",
+                engine_batch_p50_ms=f"{percentile(e, 50) * 1e3:.2f}",
+                engine_batch_p99_ms=f"{percentile(e, 99) * 1e3:.2f}",
+                micro_batches=formed[kind],
+                cached=sum(r.cached for r in got[kind]))
+        return [r for k in kinds for r in got[k]], mism
+
+    for fn in counters.values():
+        fn.launches = 0
+
+    # -- (a) one shard, full depth -------------------------------------------
+    t_sub = time.perf_counter()
+    front = FrontDoor(index, cfg=FrontDoorConfig(**GENEROUS), device="cuda")
+    backend = front.backends[0]
+    planner = front.planner
+    try:
+        backend.engine.batch_executor.dev.device_arena    # onto the card now
+        for batch in warm:
+            front.search_batch(batch)
+        torch.cuda.synchronize()
+        resps, mism = run_kinds(front, "one_shard")
+        check(all(r.shards == (0,) for r in resps),
+              "one-shard front: a response not from shard (0,)")
+        batch = kinds["unranked"][0]
+        hits0 = front.stats.cache_hits
+        again = front.search_batch(batch)
+        cache_hits = front.stats.cache_hits - hits0
+        mism["cache_again"] = sum(map(differ, want["unranked"], again))
+        check(cache_hits == len(batch) and all(r.cached for r in again),
+              f"one-shard front: {cache_hits} cache hits of {len(batch)}")
+        fault_free(front, resps + again, "one-shard front")
+        st = front.stats
+        say("front_check", front="one_shard",
+            **{f"{k}_mismatches": v for k, v in mism.items()},
+            cache_hits=cache_hits, submitted=st.submitted,
+            served_exact=st.served_exact, micro_batches=st.batches)
+        check(all(v == 0 for v in mism.values()),
+              f"one-shard front differs from the engine: {mism}")
+    finally:
+        close_front(front)
+    t_sub = phase_done("front_one_shard", t_sub)
+
+    # -- (b) four doc shards with replicas, full depth -----------------------
+    backends, replicas = shards.pop()      # the caller keeps no reference
+    for b in backends + replicas:
+        b.engine.batch_executor.dev.device_arena
+    say("front_shards", shards=len(backends), replicas=len(replicas),
+        docs=json.dumps([b.n_docs for b in backends]),
+        doc_bases=json.dumps([b.doc_base for b in backends]),
+        host_build_s=f"{shard_build_s:.1f}",
+        max_memory_allocated=torch.cuda.max_memory_allocated())
+    front = FrontDoor(index, backends=backends, replicas=replicas,
+                      cfg=FrontDoorConfig(cache_capacity=0, **GENEROUS))
+    try:
+        for batch in warm:
+            front.search_batch(batch)
+        for r in replicas:
+            r(warm[0])
+        resps, mism = run_kinds(front, "four_shards", shard_differ)
+        check(all(r.shards == (0, 1, 2, 3) for r in resps),
+              "four-shard front: a response not from shards (0, 1, 2, 3)")
+        fault_free(front, resps, "four-shard front")
+        if args.front_threads:
+            front_threads(front, backends, kinds["unranked"])
+        say("front_check", front="four_shards",
+            **{f"{k}_mismatches": v for k, v in mism.items()})
+        check(all(v == 0 for v in mism.values()),
+              f"four-shard front differs from the engine: {mism}")
+    finally:
+        close_front(front)
+
+    # faults, on a few requests of each kind (K-word windows the device
+    # takes, so that every dispatch rides a batched bucket)
+    few, few_want = [], []
+    for kind in ("unranked", "ranked", "kword", "kword_ranked"):
+        reqs = [r for b in kinds[kind] for r in b]
+        pick = [i for i, r in enumerate(reqs)
+                if r.mode != "kword" or r.window <= 15][:4]
+        few += [reqs[i] for i in pick]
+        few_want += [want[kind][i] for i in pick]
+    chaos = [ChaosShard(b) for b in backends]
+    lo, hi = backends[2].doc_base, backends[2].doc_base + backends[2].n_docs
+    faults = {}
+
+    def fault_front(replica_fns=None, **cfg):
+        for c in chaos:
+            c.set()
+        return FrontDoor(index, backends=chaos, replicas=replica_fns,
+                         cfg=FrontDoorConfig(**{**GENEROUS,
+                                                "cache_capacity": 0, **cfg}))
+
+    # primary 2 fails: its replica answers, exactly
+    front = fault_front(replicas)
+    try:
+        chaos[2].set(fail=True)
+        out = front.search_batch(few)
+        ds = front.dispatcher.stats
+        faults["replica_rescue"] = (
+            all(r.status == "SERVED_EXACT" and r.shards == (0, 1, 2, 3)
+                for r in out)
+            and not any(map(shard_differ, few_want, out))
+            and ds.redispatched > 0 and ds.failed == 0 and chaos[2].calls > 0)
+    finally:
+        close_front(front)
+    # shard 2 dead, no replica: degraded to the live doc ranges
+    front = fault_front(max_retries=1, retry_backoff_ms=5.0)
+    try:
+        chaos[2].set(fail=True)
+        out = front.search_batch(few)
+        ok = all(r.status == "SERVED_DEGRADED" and r.shed_reason == "shards"
+                 and r.shards == (0, 1, 3)
+                 and not np.any((r.doc >= lo) & (r.doc < hi)) for r in out)
+        compared = 0
+        for w, g in zip(few_want, out):
+            if w.doc_only or g.doc_only:
+                continue
+            keep = (w.doc < lo) | (w.doc >= hi)
+            ok = ok and np.array_equal(w.doc[keep], g.doc) \
+                and np.array_equal(w.pos[keep], g.pos) \
+                and (not w.ranked
+                     or np.array_equal(w.anchor_scores[keep], g.anchor_scores))
+            compared += 1
+        faults["dead_shard"] = bool(ok) and compared > 0
+        faults["dead_shard_compared"] = compared
+    finally:
+        close_front(front)
+    # shard 2 stalls past the dispatcher timeout: degraded, then backfilled
+    front = fault_front(cache_capacity=len(few), shard_timeout_s=1.0,
+                        max_retries=0)
+    try:
+        chaos[2].set(stall_s=2.5)
+        out = front.search_batch(few)
+        ok = all(r.status == "SERVED_DEGRADED" and r.shed_reason == "shards"
+                 and r.shards == (0, 1, 3) for r in out)
+        time.sleep(2.0)                       # the stalled calls finish
+        t_wait = time.monotonic() + 60.0
+        while front.stats.backfilled < 1 and time.monotonic() < t_wait:
+            time.sleep(0.05)
+        faults["backfilled"] = front.stats.backfilled
+        again = front.search_batch(few)
+        faults["stall_backfill"] = (
+            ok and faults["backfilled"] >= 1
+            and all(r.status == "SERVED_EXACT" and r.cached
+                    and r.shards == (0, 1, 2, 3) for r in again)
+            and not any(map(shard_differ, few_want, again)))
+    finally:
+        close_front(front)
+    # every shard down
+    front = fault_front(max_retries=1, retry_backoff_ms=5.0)
+    try:
+        for c in chaos:
+            c.set(fail=True)
+        out = front.search_batch(few)
+        st = front.stats
+        faults["all_down"] = st.submitted == st.responded and all(
+            r.status == "SERVED_DEGRADED" and r.shed_reason == "no_shards"
+            and r.shards == () and len(r.doc) == 0 for r in out)
+    finally:
+        close_front(front)
+        for c in chaos:
+            c.set()
+    # the control: a merge that lost one hit must fail the check
+    i = next(i for i, w in enumerate(few_want)
+             if not w.ranked and not w.doc_only and len(w.doc))
+    req = few[i]
+    plan = planner.plan(list(req.surface_ids), mode=req.mode,
+                        window=req.window, ranked=req.rank)
+    per_shard = [(s, b([req])[0]) for s, b in enumerate(backends)]
+    merged_ok = not shard_differ(few_want[i],
+                                 merge_shard_responses(req, plan, per_shard))
+    s, r = next((s, r) for s, r in per_shard
+                if len(r.doc) and not r.doc_only)
+    per_shard[s] = (s, dataclasses.replace(r, doc=r.doc[1:], pos=r.pos[1:]))
+    faults["dropped_hit_refused"] = merged_ok and shard_differ(
+        few_want[i], merge_shard_responses(req, plan, per_shard))
+    say("front_faults", requests=len(few), **faults)
+    check(all(faults[k] for k in ("replica_rescue", "dead_shard",
+                                  "stall_backfill", "all_down",
+                                  "dropped_hit_refused")),
+          f"a fault scenario failed: {faults}")
+    del backends, replicas, chaos
+    t_sub = phase_done("front_four_shards", t_sub)
+
+    # -- (c) the open loop ---------------------------------------------------
+    for argv in (["--mode", "search", "--qps", "50", "--duration", "5"],
+                 ["--mode", "search", "--qps", "50", "--duration", "5",
+                  "--ranked"]):
+        t0 = time.perf_counter()
+        fault_free(launcher.main(argv), [], f"launcher open loop {argv}")
+        say("front_launcher", argv=json.dumps(" ".join(argv)),
+            seconds=f"{time.perf_counter() - t0:.1f}")
+    stream = [r for b in kinds["unranked"] for r in b]
+    qps = 0.5 * len(stream) / sum(engine_lat["unranked"])
+    front = FrontDoor(index, backends=[backend],
+                      cfg=FrontDoorConfig(default_deadline_ms=1000.0,
+                                          cache_capacity=0,
+                                          shard_timeout_s=60.0))
+    try:
+        resps, elapsed = launcher.poisson_open_loop(front, stream, qps, 10.0,
+                                                    timeout=120.0)
+    finally:
+        close_front(front)
+    st, ds = front.stats, front.dispatcher.stats
+    p50, p95, p99 = np.percentile([r.latency_ms for r in resps],
+                                  [50, 95, 99])
+    exact_mism = sum(differ(want["unranked"][i % len(stream)], r)
+                     for i, r in enumerate(resps)
+                     if r.status == "SERVED_EXACT")
+    say("front_open_loop", docs=corpus.n_docs, target_qps=f"{qps:.1f}",
+        offered_qps=f"{len(resps) / elapsed:.1f}", requests=len(resps),
+        deadline_ms=1000, p50_ms=f"{p50:.2f}", p95_ms=f"{p95:.2f}",
+        p99_ms=f"{p99:.2f}", exact=st.served_exact,
+        degraded=st.served_degraded, shed=st.shed,
+        shed_reasons=json.dumps(st.shed_reasons), micro_batches=st.batches,
+        exact_mismatches=exact_mism)
+    check(st.submitted == st.responded == len(resps),
+          f"open loop: {st.submitted} submitted, {st.responded} responded")
+    check(ds.failed == 0 and ds.redispatched == 0,
+          f"open loop: shard calls failed ({ds})")
+    check(all(r.status == "SERVED_EXACT"
+              or r.shed_reason in ("late", "deadline", "queue_full")
+              for r in resps),
+          f"open loop: answers degraded by something else than load: "
+          f"{st.shed_reasons}")
+    check(exact_mism == 0, f"open loop: {exact_mism} exact answers differ")
+    t_sub = phase_done("front_open_loop", t_sub)
+
+    # -- (d) segments, at a cut depth ----------------------------------------
+    n = seg_index.n_docs
+    n4 = min(corpus.n_docs, n + max(1, n // 3))
+    seg_corpus = doc_range(corpus, 0, n)
+    say("front_segments", docs=n, fourth_batch=n4 - n,
+        cut=json.dumps(SEGMENT_CUT))
+    mgr = SegmentManager(index.lexicon, index.analyzer, index.params,
+                         auto_merge=False, device="cuda")
+    try:
+        t0 = time.perf_counter()
+        for b in corpus_batches(seg_corpus, 3):
+            mgr.ingest(b)
+        ingest_s = time.perf_counter() - t0
+        reqs = [SearchRequest(q, mode=m) for q, m in
+                paper_stream(np, seg_corpus, 32, args.seed + 6)]
+        reqs += [SearchRequest(q, mode=m, rank=True, top_k=10) for q, m in
+                 paper_stream(np, seg_corpus, 16, args.seed + 7)]
+        reqs += [SearchRequest(q, mode="kword", window=w, rank=i % 2 == 1)
+                 for i, (q, w) in enumerate(kword_stream(
+                     np, seg_corpus, index.lexicon, index.analyzer, 16,
+                     args.seed + 8))]
+        seg_want = AdditionalIndexEngine(seg_index,
+                                         device="cuda").search_batch(reqs)
+        seg = {"union_mismatches": sum(map(
+            shard_differ, seg_want,
+            mgr.search_batch(reqs, plan_index=seg_index)))}
+        t0 = time.perf_counter()
+        seg["merged"] = mgr.merge_now()
+        merge_s = time.perf_counter() - t0
+        seg["merged_index_diff"] = same_tree(np, seg_index,
+                                             mgr.segments[0].index)
+        seg["merged_mismatches"] = sum(map(differ, seg_want,
+                                           mgr.search_batch(reqs)))
+        # a front over the manager sees a 4th ingest
+        d_new = (n + n4) // 2
+        req = SearchRequest(corpus.doc(d_new)[4:7].tolist())
+        front = FrontDoor(segments=mgr,
+                          cfg=FrontDoorConfig(cache_capacity=16, **GENEROUS))
+        try:
+            before = front.search(req)
+            cached = front.search(req)
+            t0 = time.perf_counter()
+            mgr.ingest(doc_range(corpus, n, n4))
+            ingest_s += time.perf_counter() - t0
+            fresh = front.search(req)
+            full = engine.search_batch([req])[0]
+            keep = full.doc < n4
+            st = front.stats
+            seg.update(
+                before_new_docs=bool(np.any(before.doc >= n)),
+                cached_before_ingest=cached.cached,
+                fresh_after_ingest=not fresh.cached,
+                new_doc_found=d_new in set(fresh.doc.tolist()),
+                equal_to_engine_below=bool(
+                    not full.doc_only and not fresh.doc_only
+                    and np.array_equal(full.doc[keep], fresh.doc)
+                    and np.array_equal(full.pos[keep], fresh.pos)),
+                generation_bumps=st.generation_bumps,
+                stale_cache_hits=st.stale_cache_hits)
+            fault_free(front, [before, cached, fresh], "segment front")
+        finally:
+            close_front(front)
+    finally:
+        mgr.close()
+    say("front_segments_check", requests=len(reqs),
+        ingest_s=f"{ingest_s:.1f}", merge_s=f"{merge_s:.1f}",
+        **{k: json.dumps(v) for k, v in seg.items()})
+    check(seg["union_mismatches"] == 0 and seg["merged"]
+          and seg["merged_index_diff"] is None
+          and seg["merged_mismatches"] == 0,
+          f"segments differ from the one-shot engine: {seg}")
+    check(not seg["before_new_docs"] and seg["cached_before_ingest"]
+          and seg["fresh_after_ingest"] and seg["new_doc_found"]
+          and seg["equal_to_engine_below"] and seg["generation_bumps"] >= 1
+          and seg["stale_cache_hits"] == 0,
+          f"the segment front missed the 4th ingest: {seg}")
+    phase_done("front_segments", t_sub)
+
+    launches = {k: fn.launches for k, fn in counters.items()}
+    say("front_launches", **launches)
+    check(all(v > 0 for v in launches.values()),
+          f"a search kernel never launched in the front phase: {launches}")
     return launches
 
 
@@ -2773,6 +3344,12 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batches", type=int, default=8)
     ap.add_argument("--batch-size", type=int, default=64)
+    ap.add_argument("--segment-docs", type=int, default=1000,
+                    help="documents of phase 4c's segments (a cut depth)")
+    ap.add_argument("--front-threads", action="store_true",
+                    help="diagnostic: phase 4c (b) also times the unranked "
+                         "batches with the four shards called in turn and "
+                         "through the front at a 0.1 ms switch interval")
     ap.add_argument("--lm-arch", default="llama3-8b",
                     help="LM of the serving phase, at full width")
     ap.add_argument("--lm-batch", type=int, default=4)

@@ -19,6 +19,10 @@ from repro_torch.core.executor import DeviceIndex, Executor
 from repro_torch.core.lexicon import LexiconConfig
 from repro_torch.core.kword import MODE_KWORD
 from repro_torch.core.planner import MODE_NEAR, MODE_PHRASE, Planner, QueryPlan
+# segments last: it builds on builder/corpus/planner above (its serve-side
+# imports are lazy, inside methods — no core -> serve import cycle)
+from repro_torch.core.segments import (IndexSegment, SegmentManager,
+                                       concat_corpora, corpus_batches)
 
 __all__ = [
     "Analyzer", "make_lexicon_and_analyzer",
@@ -31,4 +35,5 @@ __all__ = [
     "near_query_contains_stop", "near_query_stop_confined",
     "DeviceIndex", "Executor", "LexiconConfig",
     "MODE_KWORD", "MODE_NEAR", "MODE_PHRASE", "Planner", "QueryPlan",
+    "IndexSegment", "SegmentManager", "concat_corpora", "corpus_batches",
 ]

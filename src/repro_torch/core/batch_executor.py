@@ -123,10 +123,19 @@ class BatchDeviceIndex:
     `docs_per_shard` sets the doc-shard granularity of the segmented gather
     (≤ fetch_tables.DOCS_PER_SHARD so packed int32 keys can't overflow);
     smaller shards only add rows, never change results.
+
+    `doc_base` is the index's first GLOBAL doc id (0 for a standalone
+    index).  A segment or doc shard built from a corpus slice
+    (core/segments.py, serve/front.py) stores LOCAL doc ids in its arena,
+    but its execution rows are laid on the GLOBAL shard grid: row shard ids
+    are global, and each row's `shard_base` is the local re-basing origin
+    `shard * dps - doc_base` (may be negative), so the rebased int32 keys
+    stay in [0, dps) exactly as for an unsegmented index.  Output keys are
+    unaffected (still local doc ids); only the row cuts move.
     """
 
     def __init__(self, index: IndexSet, device,
-                 docs_per_shard: int | None = None):
+                 docs_per_shard: int | None = None, doc_base: int = 0):
         packed = ensure_packed_streams(index)
         b = index.basic.occurrences
         e = index.expanded.pairs
@@ -188,7 +197,11 @@ class BatchDeviceIndex:
             docs_per_shard = auto_docs_per_shard(self.n_docs,
                                                  index.max_posting_run())
         self.docs_per_shard = max(1, min(docs_per_shard, DOCS_PER_SHARD))
-        self.n_shards = max(1, -(-self.n_docs // self.docs_per_shard))
+        # global shard grid: shard ids count from GLOBAL doc 0 so every
+        # segment of a growing corpus buckets on the same boundaries
+        self.doc_base = int(doc_base)
+        self.n_shards = max(1, -(-(self.doc_base + self.n_docs)
+                                 // self.docs_per_shard))
 
     @property
     def device_arena(self) -> dict:
@@ -419,11 +432,12 @@ class BatchExecutor:
     reset it as they like."""
 
     def __init__(self, index: IndexSet, device, flex: Executor | None = None,
-                 docs_per_shard: int | None = None):
+                 docs_per_shard: int | None = None, doc_base: int = 0):
         self.index = index
         self.device = torch.device(device)
         self.dev = BatchDeviceIndex(index, self.device,
-                                    docs_per_shard=docs_per_shard)
+                                    docs_per_shard=docs_per_shard,
+                                    doc_base=doc_base)
         self.flex = flex or Executor(index, self.device)
         self.timings = dict.fromkeys(
             ("plan", "rows", "tensorize", "device", "merge", "flex"), 0.0)
@@ -470,12 +484,16 @@ class BatchExecutor:
         (slot unions).  None => plan goes flex."""
         d = self.dev
         dps = d.docs_per_shard
+        base = d.doc_base
         _, _, split_cap, p0_cap, p_cap = self._caps()
         p0_cap, p_cap = max(1, p0_cap), max(1, p_cap)
-        if max(d.n_docs - 1, 0) // dps == 0:      # one shard
-            per_group = [{0: [(f, d.bases[f.stream] + f.start, f.length)
-                              for f in g.fetches]} for g in ordered]
-            seed_shards = [0]
+        # arena doc ids are LOCAL; shard ids live on the GLOBAL grid
+        sh_lo = base // dps
+        sh_hi = (base + max(d.n_docs - 1, 0)) // dps
+        if sh_lo == sh_hi:                        # one shard
+            per_group = [{sh_lo: [(f, d.bases[f.stream] + f.start, f.length)
+                                  for f in g.fetches]} for g in ordered]
+            seed_shards = [sh_lo]
         else:
             per_group = []
             for g in ordered:
@@ -483,13 +501,13 @@ class BatchExecutor:
                 for f in g.fetches:
                     s0 = d.bases[f.stream] + f.start
                     arr = d.arena_doc_np[s0:s0 + f.length]
-                    lo = int(arr[0]) // dps
-                    hi = int(arr[-1]) // dps
+                    lo = (int(arr[0]) + base) // dps
+                    hi = (int(arr[-1]) + base) // dps
                     if lo == hi:
                         m.setdefault(lo, []).append((f, s0, f.length))
                         continue
                     cuts = np.searchsorted(
-                        arr, np.arange(lo + 1, hi + 1) * dps)
+                        arr, np.arange(lo + 1, hi + 1) * dps - base)
                     edges = np.concatenate(([0], cuts, [f.length]))
                     for i in range(len(edges) - 1):
                         ln = int(edges[i + 1] - edges[i])
@@ -526,7 +544,8 @@ class BatchExecutor:
                                 or f.pivot_from_dist):
                             sortfree = False
                 groups.append(_RowGroup(band=int(ordered[gi].band), slots=slots))
-            rows.append(_Row(task=task, shard=sh, shard_base=sh * dps,
+            rows.append(_Row(task=task, shard=sh,
+                             shard_base=sh * dps - base,  # local origin
                              groups=groups, sortfree=sortfree))
         return rows
 

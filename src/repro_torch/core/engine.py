@@ -47,11 +47,13 @@ class _BatchSearchMixin:
     first read of `batch_executor`), and its device arena is copied at the
     first bucket step (`BatchDeviceIndex.device_arena`)."""
 
-    def _init_executors(self, index: IndexSet, device, docs_per_shard):
+    def _init_executors(self, index: IndexSet, device, docs_per_shard,
+                        doc_base: int = 0):
         self.index = index
         self.device = resolve_device(device)
         self.executor = Executor(index, self.device)
         self._docs_per_shard = docs_per_shard
+        self._doc_base = doc_base
         self._batch_executor = None
 
     @property
@@ -59,7 +61,8 @@ class _BatchSearchMixin:
         if self._batch_executor is None:
             self._batch_executor = BatchExecutor(
                 self.index, self.device, flex=self.executor,
-                docs_per_shard=self._docs_per_shard)
+                docs_per_shard=self._docs_per_shard,
+                doc_base=self._doc_base)
         return self._batch_executor
 
     def _plan(self, request: SearchRequest) -> QueryPlan:
@@ -91,13 +94,22 @@ class AdditionalIndexEngine(_BatchSearchMixin):
     batched executor (identical results — see batch_executor.py).
     `device=None` means the card; pass `device="cpu"` to run on the CPU.
     `occ_counts` gives the planner cluster-wide occurrence statistics when
-    this engine holds one doc shard of a larger corpus (see Planner).
+    this engine holds one doc shard of a larger corpus (see Planner);
+    `doc_base` is then this engine's first GLOBAL doc id (segments, doc
+    shards): the batched executor lays its rows on the global shard grid,
+    so every shard buckets identically (its answers keep local doc ids).
+    `windowed_near_stop=False` restores the paper's Type-4 sequential
+    confinement of near queries with stop forms (the speed benchmark's
+    before / after comparison).
     """
 
     def __init__(self, index: IndexSet, device=None,
-                 docs_per_shard: int | None = None, occ_counts=None):
-        self.planner = Planner(index, occ_counts=occ_counts)
-        self._init_executors(index, device, docs_per_shard)
+                 docs_per_shard: int | None = None,
+                 windowed_near_stop: bool = True, occ_counts=None,
+                 doc_base: int = 0):
+        self.planner = Planner(index, windowed_near_stop=windowed_near_stop,
+                               occ_counts=occ_counts)
+        self._init_executors(index, device, docs_per_shard, doc_base)
 
     def refresh_occ_counts(self, occ_counts=None):
         """Re-snapshot the planner's pivot statistics (see

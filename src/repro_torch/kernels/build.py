@@ -23,6 +23,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
@@ -130,3 +131,14 @@ def load(name: str, entry: str | None = None):
 def check(err: int, what: str):
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(wrapper):
+    """Adds one to `wrapper.launches` under a lock: shards of the front
+    door launch from several threads at once, and a bare `+= 1` can lose
+    an update."""
+    with _LAUNCH_LOCK:
+        wrapper.launches += 1

@@ -114,7 +114,7 @@ def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              DTYPE_CODES[q.dtype], chunk, n_split,
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_decode")
-    flash_decode_cuda.launches += 1
+    build.count_launch(flash_decode_cuda)
     return out
 
 

@@ -41,7 +41,7 @@ def flash_prefill_cuda(q: torch.Tensor, k: torch.Tensor,
              Hq, k.shape[2], D, DTYPE_CODES[q.dtype],
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_prefill")
-    flash_prefill_cuda.launches += 1
+    build.count_launch(flash_prefill_cuda)
     return out
 
 

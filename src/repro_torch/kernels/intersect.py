@@ -107,7 +107,7 @@ def banded_intersect_rows_cuda(a: torch.Tensor, b_sorted: torch.Tensor,
                  pb, row_plan(pb), found.data_ptr(),
                  torch.cuda.current_stream(a.device).cuda_stream)
         build.check(err, "banded_intersect_rows")
-        banded_intersect_rows_cuda.launches += 1
+        build.count_launch(banded_intersect_rows_cuda)
     return found
 
 
@@ -130,7 +130,7 @@ def banded_min_delta_rows_cuda(a: torch.Tensor, bk: torch.Tensor,
                  N, pa, pb, fence_stride(pb), out.data_ptr(),
                  torch.cuda.current_stream(a.device).cuda_stream)
         build.check(err, "banded_min_delta_rows")
-        banded_min_delta_rows_cuda.launches += 1
+        build.count_launch(banded_min_delta_rows_cuda)
     return out
 
 
@@ -158,7 +158,7 @@ def banded_delta_mask_rows_cuda(a: torch.Tensor, b_sorted: torch.Tensor,
                  out[0].data_ptr(), out[1].data_ptr(),
                  torch.cuda.current_stream(a.device).cuda_stream)
         build.check(err, "banded_delta_mask_rows")
-        banded_delta_mask_rows_cuda.launches += 1
+        build.count_launch(banded_delta_mask_rows_cuda)
     return out[0], out[1]
 
 

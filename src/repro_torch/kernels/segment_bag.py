@@ -132,7 +132,7 @@ def segment_bag_cuda(table: torch.Tensor, ids: torch.Tensor,
              tile.fields, tile.groups, tile.threads, tile.vec,
              torch.cuda.current_stream(table.device).cuda_stream)
     build.check(err, "segment_bag")
-    segment_bag_cuda.launches += 1
+    build.count_launch(segment_bag_cuda)
     return out
 
 

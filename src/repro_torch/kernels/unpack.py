@@ -44,7 +44,7 @@ def unpack_postings_cuda(lanes: torch.Tensor, blk_meta: torch.Tensor,
                  out[1].data_ptr(), out[2].data_ptr(),
                  torch.cuda.current_stream(idx.device).cuda_stream)
         build.check(err, "unpack_postings")
-        unpack_postings_cuda.launches += 1
+        build.count_launch(unpack_postings_cuda)
     return out[0], out[1], out[2]
 
 

@@ -3,6 +3,7 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --mode search --queries 32
     PYTHONPATH=src python -m repro_torch.launch.serve --mode search --ranked --top-k 5
     PYTHONPATH=src python -m repro_torch.launch.serve --mode search --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode search --qps 50 --duration 5
     PYTHONPATH=src python -m repro_torch.launch.serve --mode lm --arch llama3-8b
 
   search — (the default) build the paper's indexes over a synthetic corpus
@@ -10,8 +11,13 @@
            one timed batch of `--queries` requests through `SearchServe`
            on a one-rank mesh (launch/mesh.py): the reference's
            `serve_search`.  `--ranked` asks near queries with proximity
-           ranking.  The open loop (`--qps`) needs the front door, which is
-           not ported yet (ROADMAP.md queue 1, item 7).
+           ranking.  Passing `--qps` switches to an OPEN loop: Poisson
+           arrivals at that rate for `--duration` seconds through the
+           serving front door (serve/front.py), each request with a
+           `--deadline-ms` budget, reporting the per-request p50 / p95 /
+           p99 a client-side SLO would see and the exact / degraded / shed
+           counts (a closed loop hides queueing delay: it offers the next
+           request only after the previous one finished).
   lm     — greedy decode from the architecture's smoke config with the KV
            cache decode step (`decode_step`, attention through the
            flash-decode kernel), batch 2, cache of 128 positions: the
@@ -97,6 +103,75 @@ def serve_search(n_queries: int, ranked: bool = False, top_k: int = 10,
     return results
 
 
+def poisson_open_loop(front, requests, qps: float, duration: float,
+                      seed: int = 1, timeout: float | None = None):
+    """Offers `requests` (cycled) to `front` at Poisson arrival times of
+    rate `qps`, drawn from `default_rng(seed)`, for `duration` seconds, and
+    does not wait for an answer before the next arrival; then waits for
+    every ticket (each at most `timeout` seconds).  Arrivals keep their
+    schedule: a submit that wakes late (a sleep's overshoot, the front's
+    threads holding the interpreter) is followed at once by the arrivals it
+    fell behind, so the offered rate is `qps` and not `qps` less the host's
+    overheads.  Returns (responses, seconds from the first arrival to the
+    last)."""
+    rng = np.random.default_rng(seed)
+    tickets = []
+    t0 = time.monotonic()
+    t_next = t0
+    while t_next < t0 + duration:
+        wait = t_next - time.monotonic()
+        if wait > 0:
+            time.sleep(wait)
+        tickets.append(front.submit(requests[len(tickets) % len(requests)]))
+        t_next += rng.exponential(1.0 / qps)
+    offered_s = time.monotonic() - t0
+    return [t.result(timeout) for t in tickets], offered_s
+
+
+def serve_search_open_loop(qps: float, duration: float, deadline_ms: float,
+                           ranked: bool = False, top_k: int = 10,
+                           n_queries: int = 64, device=None):
+    """Open-loop load: Poisson arrivals at `qps` through the front door for
+    `duration` seconds (`poisson_open_loop`).  Unlike the closed loop above,
+    arrivals do NOT wait for completions, so queueing delay is measured,
+    not hidden — the latencies reported here are what a client-side SLO
+    would see.  Returns the closed front door: `.stats` holds the measured
+    window, `.dispatcher.stats` every shard call, warm-up included."""
+    import dataclasses as _dc
+
+    from repro_torch.serve import FrontDoor, FrontDoorConfig
+    device = resolve_device(device)             # before the index build
+    index, requests = _search_world(n_queries, ranked, top_k)
+    cfg = FrontDoorConfig(default_deadline_ms=deadline_ms, cache_capacity=0,
+                          shard_timeout_s=max(60.0, 4 * deadline_ms / 1000.0))
+    front = FrontDoor(index, cfg=cfg, device=device)
+    try:
+        # warm up outside the measured window (generous deadline): the
+        # arena's upload, and micro-batches of every size the measured
+        # window can form (the executor pow2-buckets its task rows)
+        warm = [_dc.replace(r, deadline_ms=600_000.0) for r in requests]
+        n = 1
+        while n < len(warm):
+            front.search_batch(warm[:n])
+            n *= 2
+        front.search_batch(warm)
+        front.stats = type(front.stats)()
+        resps, elapsed = poisson_open_loop(front, requests, qps, duration)
+    finally:
+        front.close()
+    lat = np.array([r.latency_ms for r in resps])
+    p50, p95, p99 = np.percentile(lat, [50, 95, 99])
+    st = front.stats
+    label = "ranked top-%d" % top_k if ranked else "phrase"
+    print(f"[serve/search] open-loop {label}: offered "
+          f"{len(resps) / elapsed:.1f} qps for {elapsed:.1f} s "
+          f"({len(resps)} requests, deadline {deadline_ms:.0f} ms): "
+          f"p50 {p50:.1f} ms, p95 {p95:.1f} ms, p99 {p99:.1f} ms; "
+          f"exact {st.served_exact}, degraded {st.served_degraded}, "
+          f"shed {st.shed} (shed_rate {st.shed_rate:.3f})")
+    return front
+
+
 def serve_lm(arch: str, n_tokens: int, device=None) -> list:
     """Greedy decode of `n_tokens` tokens, batch 2, from token 0, with
     weights from `init_params` and a generator seeded 0.  Returns batch row
@@ -125,6 +200,7 @@ def serve_lm(arch: str, n_tokens: int, device=None) -> list:
 
 
 def main(argv=None):
+    """Runs the mode `argv` asks for; returns what its function returns."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=["search", "lm"], default="search")
     ap.add_argument("--arch", default="llama3-8b")
@@ -134,19 +210,23 @@ def main(argv=None):
                     help="near-mode queries with proximity ranking")
     ap.add_argument("--top-k", type=int, default=10)
     ap.add_argument("--qps", type=float, default=0.0,
-                    help="open-loop arrival rate (not ported yet)")
+                    help="open-loop Poisson arrival rate through the front "
+                         "door (0 = closed-loop batch timing)")
+    ap.add_argument("--duration", type=float, default=5.0,
+                    help="open-loop measurement window, seconds")
+    ap.add_argument("--deadline-ms", type=float, default=500.0,
+                    help="open-loop per-request deadline")
     ap.add_argument("--device", default=None,
                     help="'cpu' to run on the CPU (default: the card)")
     args = ap.parse_args(argv)
-    if args.mode == "search":
-        if args.qps > 0:
-            raise NotImplementedError(
-                "--qps (the open loop) needs the front door, which is not "
-                "ported yet (ROADMAP.md queue 1, item 7)")
-        serve_search(args.queries, ranked=args.ranked, top_k=args.top_k,
-                     device=args.device)
-    else:
-        serve_lm(args.arch, args.tokens, device=args.device)
+    if args.mode == "lm":
+        return serve_lm(args.arch, args.tokens, device=args.device)
+    if args.qps > 0:
+        return serve_search_open_loop(
+            args.qps, args.duration, args.deadline_ms, ranked=args.ranked,
+            top_k=args.top_k, n_queries=args.queries, device=args.device)
+    return serve_search(args.queries, ranked=args.ranked, top_k=args.top_k,
+                        device=args.device)
 
 
 if __name__ == "__main__":

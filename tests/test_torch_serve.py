@@ -350,8 +350,13 @@ def test_search_launcher_on_cpu(capsys):
     main(["--mode", "search", "--queries", "4", "--device", "cpu"])
     out = capsys.readouterr().out
     assert "[serve/search] 4 phrase queries" in out and "CPU" in out
-    with pytest.raises(NotImplementedError, match="item 7"):
-        main(["--mode", "search", "--qps", "5", "--device", "cpu"])
+    # the open loop (--qps) through the front door prints the reference's
+    # line; at 5 qps the CPU keeps up, so nothing sheds or degrades
+    main(["--mode", "search", "--qps", "5", "--duration", "1",
+          "--deadline-ms", "5000", "--queries", "4", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "[serve/search] open-loop phrase: offered" in out
+    assert "degraded 0, shed 0 (shed_rate 0.000)" in out
 
 
 # ---------------------------------------------------------------------------
