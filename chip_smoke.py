@@ -110,6 +110,31 @@ Phases, each reported on its own lines:
    one launch per layer); prefill tokens/s, decode ms per step, peak
    memory; then two more flash steps under torch.profiler: the device's
    busy ms per step, its idle share and the kernels that lead;
+6b. MoE serving — with the LM phases' memory handed back, each MoE arch
+   at full width in bf16 with random weights from --seed (MOE_RUNS):
+   granite-moe-1b-a400m at full depth (4 x 4096 prompt tokens, a
+   32768-slot cache, 16 steps) and moonshot-v1-16b-a3b (2 x 1024 prompt
+   tokens, 8 steps, at full depth with its cache cut to what the run
+   writes, printed with the reason).  Each: the
+   flash-decode kernel at the arch's (G, D), G = 2, D = 64 and G = 1, D =
+   128, against its plain version on phase 5's edge cases in bf16 and f32
+   and at the path's cache (flat and with needle rows), refusing a zeroed
+   output and a decode at kv_len - 1, timed beside bound, plain version
+   and SDPA, its design printed; then `forward_with_cache`, greedy flash
+   `decode_step`s (every layer's attention within one bf16 ulp of a row's
+   scale of the plain version; launches = layers x steps) and the same
+   steps teacher-forced through the plain attention, each on the cache its
+   flash step read: the two passes' routing compared layer by layer (every difference must be a near tie:
+   a K-th / (K+1)-th probability gap no wider than the two passes'
+   difference; each is printed), the logits within 5e-2 at every (step,
+   row) no layer routed differently; the MoE layer on captured prefill and
+   decode inputs of its first, middle and last layer against the same
+   function on the CPU in float32 from the same bf16 values (routing equal
+   but at near ties; outputs within 5e-2 and MOE_LAYER_ULPS of a row's
+   scale; a K - 1 experts control refused); prefill tokens/s, decode ms
+   per step, the device's busy ms per step under torch.profiler, the
+   dispatch's padded share (1 - K/E), peak memory.  Then `serve_lm` of
+   both archs on the card: its first 10 tokens equal the CPU's;
 7. recsys kernel — with the LM phases' memory handed back, the
    embedding-bag kernel against its plain version on seeded edge cases (D
    1 to 128, B = 1, F = 1, all-pad bags, ids past the table, sum and mean,
@@ -134,12 +159,18 @@ Phases, each reported on its own lines:
    CPU, serve_bulk for AutoInt and BST, retrieval: MIND at 1,000,000
    candidates, AutoInt and BST cut to 65,536; MIND's serve_bulk is cut,
    each cut printed with its reason); QPS and step p50 / p99 per shape,
-   peak memory.
+   peak memory;
+9. examples — examples/torch_quickstart.py, torch_search_serve.py and
+   torch_distributed_search.py (one NCCL rank per card), each a
+   subprocess on the card at its default size, all at once: each must
+   exit 0; their seconds.
 
 Any failed check exits non-zero.  Before the last line it prints one
 `kernels` JSON line for all seven kernels (the search kernels' `launches`
 count phases 4, 4b and 4c, `serve_launches` phase 4b alone,
-`front_launches` phase 4c alone); the last line of
+`front_launches` phase 4c alone; flash decode's count phases 6 and 6b,
+and its `moe_shapes` hold its numbers at the two MoE shapes); the last
+line of
 standard output
 is `{"ok": true, "device": {...}}`.  Without a CUDA device, or without the
 repository's sources beside it, the script fails without a result.
@@ -649,7 +680,18 @@ def run(args) -> dict:
     kernels += lm_phases(args, np, torch)
     gc.collect()
     torch.cuda.empty_cache()
+    moe_shapes = moe_phases(args, np, torch)
+    decode = next(k for k in kernels if k["name"] == "flash_decode")
+    decode["launches"] += sum(m["launches"] for m in moe_shapes)
+    decode["max_abs_err"] = max([decode["max_abs_err"]]
+                                + [m["max_abs_err"] for m in moe_shapes])
+    decode["moe_shapes"] = moe_shapes
+    gc.collect()
+    torch.cuda.empty_cache()
     kernels += recsys_phases(args, np, torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    example_phase()
     say("phase", name="total", seconds=f"{time.perf_counter() - t_run:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     return {"platform": "gpu", "kind": device_kind,
@@ -1931,6 +1973,33 @@ def needle_cache(torch, q, k, v, kv_len):
     return nk, v.clone()
 
 
+def decode_steps(torch, tfm, model, cache, logits0, P, T, impl, feed,
+                 past=None):
+    """T greedy `decode_step`s from cache slot P with attention `impl`,
+    the first token the argmax of `logits0`, or the tokens `feed`
+    (teacher-forced).  `past`, the k and v of slots P.. that another pass
+    wrote, is copied back before each step, so that step t reads the cache
+    that pass's step t read.  Returns (logits [T, B, Vp], the tokens fed,
+    each step's seconds)."""
+    vocab = model.cfg.vocab
+    logits, fed, step_s = [], [], []
+    tok = torch.argmax(logits0[:, :vocab], dim=-1)
+    for t in range(T):
+        tok = tok if feed is None else feed[t]
+        fed.append(tok)
+        if past is not None:
+            for f in ("k", "v"):
+                cache[f][:, :, P:P + t].copy_(past[f][:, :, :t])
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        lg, _ = tfm.decode_step(model, cache, tok, P + t, attn_impl=impl)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+        logits.append(lg)
+        tok = torch.argmax(lg[:, :vocab], dim=-1)
+    return torch.stack(logits), fed, step_s
+
+
 def decode_trace(torch, tfm, model, cache, tok, cur_len, steps=2):
     """Wall and device time of `steps` flash decode steps under
     torch.profiler: the device's busy ms per step (the sum of its kernels'
@@ -2175,18 +2244,8 @@ def lm_phases(args, np, torch) -> list:
     torch.cuda.empty_cache()
 
     def decode(impl, feed):
-        logits, fed, step_s = [], [], []
-        tok = torch.argmax(logits0[:, :cfg.vocab], dim=-1)
-        for t in range(T):
-            tok = tok if feed is None else feed[t]
-            fed.append(tok)
-            t1 = time.perf_counter()
-            lg, _ = tfm.decode_step(model, cache, tok, P + t, attn_impl=impl)
-            torch.cuda.synchronize()
-            step_s.append(time.perf_counter() - t1)
-            logits.append(lg)
-            tok = torch.argmax(lg[:, :cfg.vocab], dim=-1)
-        return torch.stack(logits), fed, step_s
+        return decode_steps(torch, tfm, model, cache, logits0, P, T, impl,
+                            feed)
 
     with recording(ops, "flash_decode", []) as dec_calls:
         flash_logits, fed, flash_s = decode("flash", None)
@@ -2288,6 +2347,355 @@ def lm_phases(args, np, torch) -> list:
                         "plain_ms": plain_ms, "bound_ms": b_ms,
                         "bound_by": b_by, "library_ms": lib_ms})
     return kernels
+
+
+# ---------------------------------------------------------------------------
+# the MoE serving path
+# ---------------------------------------------------------------------------
+
+# (arch, batch, prompt tokens, greedy decode steps, cache slots or None):
+# granite-moe at full depth with decode_32k's 32768-slot cache, as the
+# dense LM phase; moonshot with its cache cut to what the run writes
+MOE_RUNS = (("granite-moe-1b-a400m", 4, 4096, 16, 32768),
+            ("moonshot-v1-16b-a3b", 2, 1024, 8, None))
+MOE_TRACE_STEPS = 2            # flash steps under torch.profiler, after
+                               # the checked ones
+MOE_CACHE_CUT = (
+    "decode_32k's 32768-slot cache cut to prompt + steps + the traced "
+    "steps: at 32768 slots the bf16 cache is 48 x 32768 x 16 x 128 x 2 x 2 "
+    "B = 12.9 GB a batch row, which does not fit beside the 56.1 GB of "
+    "weights")
+MOE_CHECK_TOKENS = 128         # prefill tokens of each checked layer (the
+                               # CPU runs them in float32)
+MOE_LAYER_ULPS = 2.0 ** -5     # the MoE layer on the card (bf16) against
+                               # the CPU in float32 from the same bf16
+                               # values, in units of a row's scale: h, u,
+                               # their product, the expert output, the gate
+                               # product and the K adds each round to bf16
+                               # (one ulp, 2^-7, does not hold: ~1.6 ulps
+                               # on the CPU at both widths)
+
+
+def decode_cases_at(np, torch, rng, G, D):
+    """Phase 5's flash-decode edge cases at query group G and head dim D:
+    kv_len 0, 1, S, odd and past S; 64-row tiles with S % 64 != 0; one row
+    past a 512-row chunk of the split, on one, shorter than one beside long
+    rows (S 8192, B 4, 8 kv heads); float32 and bf16."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = []
+    for B, Hkv, S, kv_len, dt in [
+            (2, 4, 96, [1, 96], f32),
+            (3, 2, 1000, [0, 999, 517], f32),
+            (2, 1, 777, [777, 5000], f32),
+            (4, 4, 2048, [1, 2048, 1023, 0], bf16),
+            (4, 8, 8192, [513, 1024, 100, 8192], bf16),
+            (4, 8, 8192, [511, 512, 1, 0], bf16),
+            (3, 2, 1000, [0, 1000, 5000], bf16),
+            (3, 2, 1000, [65, 64, 63], f32)]:
+        q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                   .to(device="cuda", dtype=dt)
+                   for s in ((B, Hkv * G, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+        cases.append((q, k, v, torch.tensor(kv_len, dtype=torch.int32,
+                                            device="cuda")))
+    return cases
+
+
+def moe_layer_check(torch, moe, layer, x, mcfg):
+    """The MoE layer on captured tokens x [T, D] (bf16, on the card) against
+    the same function on the CPU in float32 from the same bf16 values (the
+    router cast to bf16, as `route` casts it).  Returns the routing's
+    (differs, gap, near_tie) per token and the row-relative and absolute
+    errors on the tokens routed alike, with a control: the CPU's layer with
+    K - 1 experts, which the check must refuse."""
+    import dataclasses
+    probs_c, _, idx_c = moe.route(x[None], layer.router, mcfg)
+    y_c, _ = moe.moe_ffn(x, layer.router, layer.wg, layer.wu, layer.wd, mcfg,
+                         x.dtype, dropless=True)
+    xr = x.float().cpu()
+    wr = [w.to(x.dtype).float().cpu() for w in
+          (layer.router, layer.wg, layer.wu, layer.wd)]
+    probs_r, _, idx_r = moe.route(xr[None], wr[0], mcfg)
+    y_r, _ = moe.moe_ffn(xr, *wr, mcfg, torch.float32, dropless=True)
+    y_k1, _ = moe.moe_ffn(xr, *wr, dataclasses.replace(
+        mcfg, top_k=mcfg.top_k - 1), torch.float32, dropless=True)
+    differs, gap, near = moe.routing_differences(probs_r, idx_r,
+                                                 probs_c.cpu(), idx_c.cpu())
+    alike = ~differs[0]
+    y_c = y_c.cpu()
+    return {"differs": differs[0], "gap": gap[0], "near": near[0],
+            "rel": row_rel_err(torch, y_c[alike], y_r[alike]),
+            "abs": max_err(torch, y_c[alike], y_r[alike]),
+            "control_k_minus_1": control(
+                torch, "MoE layer with K - 1 experts", y_k1[alike],
+                y_r[alike], MOE_LAYER_ULPS)}
+
+
+def moe_arch_phase(args, np, torch, arch, B, P, T, s_max) -> dict:
+    """One MoE arch at full width and depth in bf16 (random weights from
+    --seed): the flash-decode kernel at the arch's (G, D) against its plain
+    version (edge cases; the path's real cache, flat and with needle rows;
+    refused controls; timed beside bound, plain and SDPA), then the main
+    path (`forward_with_cache`, T greedy flash `decode_step`s, the same
+    steps teacher-forced through the plain attention), each layer's
+    attention held against the plain version, the routing of the two
+    passes compared (every difference a near tie), the logits compared
+    where no layer routed differently, and the MoE layer itself held
+    against its float32 counterpart on the CPU.  Returns the kernel's
+    numbers at this arch."""
+    import torch.nn.functional as F
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_decode import decode_split, flash_decode_info
+    from repro_torch.launch.steps import forward_with_cache
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+
+    t_start = t_phase = time.perf_counter()
+    cfg = get_arch(arch).make_config()
+    check(cfg.dtype == torch.bfloat16 and cfg.moe is not None,
+          f"{arch} is not a bf16 MoE model")
+    cut = None
+    if s_max is None:
+        s_max = P + T + MOE_TRACE_STEPS
+        cut = MOE_CACHE_CUT
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    model = tfm.init_params(cfg, gen, "cuda")
+    prompt = torch.randint(0, cfg.vocab, (B, P), generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    Lx, mcfg = cfg.n_layers, cfg.moe
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    G = hq // hkv
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    cache_bytes = 2 * Lx * B * s_max * hkv * hd * 2
+    padded = 1 - mcfg.top_k / mcfg.n_experts
+    say("moe_model", arch=arch, layers=Lx, d_model=cfg.d_model, heads=hq,
+        kv_heads=hkv, head_dim=hd, group=G, experts=mcfg.n_experts,
+        top_k=mcfg.top_k, d_expert=mcfg.d_expert, vocab=cfg.vocab,
+        params=cfg.param_count(), active_params=cfg.active_param_count(),
+        weight_bytes=weight_bytes, cache_bytes=cache_bytes, batch=B,
+        prompt=P, steps=T, cache_len=s_max,
+        dispatch_padded_share=f"{padded:.4f}")
+    if cut:
+        say("moe_model", arch=arch, cut=json.dumps(cut))
+    chunk, n_split = decode_split(s_max, B, hkv)
+    say("kernel_design", name="flash_decode", arch=arch, group=G,
+        cache=f"[{B},{s_max},{hkv},{hd}]", chunk_rows=chunk, n_split=n_split,
+        ctas=B * hkv * n_split, cuda_launches_per_call=2,
+        **flash_decode_info(hd, cfg.dtype, G))
+    t_phase = phase_done(f"moe_init_{arch}", t_phase)
+
+    # -- the flash-decode kernel at this arch's (G, D) ------------------------
+    rng = np.random.default_rng(args.seed + G * hd)
+    dq = torch.randn((B, hq, hd), generator=gen, device="cuda").to(cfg.dtype)
+    dk, dv = (torch.randn((B, s_max, hkv, hd), generator=gen, device="cuda")
+              .to(cfg.dtype) for _ in range(2))
+    d_len = torch.full((B,), P, dtype=torch.int32, device="cuda")
+    nk, nv = needle_cache(torch, dq, dk, dv, d_len)
+    err = rel = 0.0
+    for q, k, v, kv_len in decode_cases_at(np, torch, rng, G, hd) + [
+            (dq, dk, dv, d_len), (dq, nk, nv, d_len)]:
+        e, r = hold(torch, f"flash_decode != plain at q{tuple(q.shape)} "
+                    f"k{tuple(k.shape)} {q.dtype} kv_len {kv_len.tolist()}",
+                    ops.flash_decode(q, k, v, kv_len),
+                    ops.flash_decode_plain(q, k, v, kv_len))
+        err, rel = max(err, e), max(rel, r)
+    want_needle = ops.flash_decode_plain(dq, nk, nv, d_len)
+    controls = {
+        "decode_zero": control(torch, "zeroed decode", torch.zeros_like(
+            want_needle), want_needle, ROW_ULP),
+        "decode_kv_len_minus_1": control(
+            torch, "decode at kv_len - 1",
+            ops.flash_decode(dq, nk, nv, d_len - 1), want_needle, ROW_ULP)}
+    del nk, nv, want_needle
+
+    def sdpa_decode():
+        mask = (torch.arange(s_max, device="cuda")[None] < d_len[:, None])
+        return F.scaled_dot_product_attention(
+            dq[:, :, None], dk.transpose(1, 2), dv.transpose(1, 2),
+            attn_mask=mask[:, None, None], enable_gqa=True)[:, :, 0]
+
+    b_ms, b_by = bound_ms(*decode_bound(torch, dq, dk, d_len),
+                          FLOPS_PER_S[str(cfg.dtype)])
+    kernel = {"arch": arch, "shape": f"q{tuple(dq.shape)}k{tuple(dk.shape)}"
+              f"kv_len{P}", "group": G, "head_dim": hd,
+              "ms": time_cuda_ms(torch, lambda: ops.flash_decode(
+                  dq, dk, dv, d_len)),
+              "plain_ms": time_cuda_ms(torch, lambda: ops.flash_decode_plain(
+                  dq, dk, dv, d_len)),
+              "bound_ms": b_ms, "bound_by": b_by,
+              "library_ms": time_cuda_ms(torch, sdpa_decode),
+              "max_abs_err": err, "row_rel_err": rel}
+    say("moe_kernel_check", arch=arch, flash_decode_max_abs_err=f"{err:.4g}",
+        flash_decode_row_rel_err=f"{rel:.4g}", limit=ROW_ULP,
+        controls=json.dumps({k: round(v, 4) for k, v in controls.items()}),
+        **{k: (f"{v:.5f}" if isinstance(v, float) else v)
+           for k, v in kernel.items() if k.endswith("ms")},
+        bound_share=f"{kernel['bound_ms'] / kernel['ms']:.3f}")
+    del dq, dk, dv
+    torch.cuda.empty_cache()
+    t_phase = phase_done(f"moe_kernel_{arch}", t_phase)
+
+    # -- main path: prefill, greedy flash decode, plain decode ---------------
+    ops.flash_decode_cuda.launches = 0
+    with recording(moe, "route", []) as pre_routes:
+        t0 = time.perf_counter()
+        logits0, pcache = forward_with_cache(model, prompt)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+    prefill_peak = torch.cuda.max_memory_allocated()
+    check_layers = sorted({0, Lx // 2, Lx - 1})    # first, middle, last
+    pre_x = {li: pre_routes[li][0][0][0, :MOE_CHECK_TOKENS].clone()
+             for li in check_layers}
+    del pre_routes
+    cache = tfm.init_cache(cfg, B, s_max, device="cuda")
+    for f in ("k", "v"):
+        cache[f][:, :, :P].copy_(pcache[f])
+    del pcache
+    torch.cuda.empty_cache()
+
+    def decode(impl, feed, past=None):
+        return decode_steps(torch, tfm, model, cache, logits0, P, T, impl,
+                            feed, past)
+
+    with recording(ops, "flash_decode", []) as dec_calls, \
+            recording(moe, "route", []) as flash_routes:
+        flash_logits, fed, flash_s = decode("flash", None)
+    launches = ops.flash_decode_cuda.launches
+    dec_rel = 0.0
+    for (q, ck, cv, kv_len), o in dec_calls:
+        dec_rel = max(dec_rel, row_rel_err(
+            torch, o, ops.flash_decode_plain(q, ck, cv, kv_len)))
+    last = dec_calls[-Lx:]
+    path_controls = {
+        "decode_zero": max(control(
+            torch, "zeroed attention", torch.zeros_like(o), o, ROW_ULP)
+            for _, o in last),
+        "decode_half_cache": min(control(
+            torch, "attention over half the cache",
+            ops.flash_decode_plain(q, ck, cv, kv_len // 2), o, ROW_ULP)
+            for (q, ck, cv, kv_len), o in last)}
+    dec_x = {li: flash_routes[li][0][0][0].clone() for li in check_layers}
+    del dec_calls, last
+    # teacher-forced through the plain attention, each step on the cache
+    # the flash step read: the two passes differ only within a step
+    flash_past = {f: cache[f][:, :, P:P + T].clone() for f in ("k", "v")}
+    with recording(moe, "route", []) as plain_routes:
+        plain_logits, _, plain_s = decode("xla", fed, flash_past)
+    del flash_past
+
+    # the two passes' routing, layer by layer: a row routed differently in
+    # a layer feeds the later layers of its step other inputs, so it is
+    # compared no further in that step and its logits are left out there
+    check(len(flash_routes) == len(plain_routes) == Lx * T,
+          f"{len(flash_routes)} / {len(plain_routes)} routings, want {Lx * T}")
+    compared = torch.ones((T, B), dtype=torch.bool)
+    ties = []
+    for i, ((_, fo), (_, po)) in enumerate(zip(flash_routes, plain_routes)):
+        t, li = divmod(i, Lx)
+        differs, gap, near = (a[0].cpu() for a in moe.routing_differences(
+            fo[0], fo[2], po[0], po[2]))
+        new = differs & compared[t]
+        for b in torch.nonzero(new).flatten().tolist():
+            check(bool(near[b]), f"{arch}: step {t} layer {li} row {b} "
+                  f"routed differently by flash and plain decode with a gap "
+                  f"of {float(gap[b]):.3g} between its K-th and (K+1)-th "
+                  f"expert, wider than the two passes' difference")
+            ties.append({"step": t, "layer": li, "row": b,
+                         "gap": float(f"{float(gap[b]):.3g}")})
+        compared[t] &= ~new
+    del flash_routes, plain_routes
+    step_err = (flash_logits - plain_logits).abs().amax(-1).cpu()   # [T, B]
+    logit_err = float(step_err[compared].max()) if compared.any() else 0.0
+    finite = all(bool(torch.isfinite(x).all())
+                 for x in (logits0, flash_logits, plain_logits))
+    agree = int((flash_logits[..., :cfg.vocab].argmax(-1)
+                 == plain_logits[..., :cfg.vocab].argmax(-1)).sum())
+    torch.cuda.synchronize()
+    t_phase = phase_done(f"moe_main_path_{arch}", t_phase)
+    say("moe_decode_trace", arch=arch, **decode_trace(
+        torch, tfm, model, cache, fed[-1], P + T, steps=MOE_TRACE_STEPS))
+
+    # -- the MoE layer itself against float32 on the CPU ----------------------
+    layer_checks = {}
+    for li in check_layers:
+        for kind, x in (("prefill", pre_x[li]), ("decode", dec_x[li])):
+            layer_checks[(kind, li)] = moe_layer_check(
+                torch, moe, model.layers[li], x, mcfg)
+    del pre_x, dec_x
+    layer_ties = [{"layer": li, "kind": kind, "token": j,
+                   "gap": float(f"{float(c['gap'][j]):.3g}")}
+                  for (kind, li), c in layer_checks.items()
+                  for j in torch.nonzero(c["differs"]).flatten().tolist()]
+    layer_rel = max(c["rel"] for c in layer_checks.values())
+    layer_abs = max(c["abs"] for c in layer_checks.values())
+    layer_control = min(c["control_k_minus_1"] for c in layer_checks.values())
+    layer_faults = [(k, j) for k, c in layer_checks.items()
+                    for j in torch.nonzero(c["differs"] & ~c["near"])
+                    .flatten().tolist()]
+    t_phase = phase_done(f"moe_layer_check_{arch}", t_phase)
+
+    say("moe_check", arch=arch, decode_attention_row_rel_err=f"{dec_rel:.4g}",
+        decode_limit=ROW_ULP, controls=json.dumps(
+            {k: round(v, 4) for k, v in path_controls.items()}),
+        decode_logits_max_abs_err=f"{logit_err:.4g}",
+        logits_compared=f"{int(compared.sum())}/{T * B}",
+        routing_near_ties=json.dumps(ties), argmax_agree=f"{agree}/{B * T}",
+        finite=finite, flash_decode_launches=launches)
+    say("moe_layer_check", arch=arch, layers=",".join(map(str, check_layers)),
+        tokens=f"{MOE_CHECK_TOKENS} prefill + {B} decode a layer",
+        row_rel_err=f"{layer_rel:.4g}", limit=MOE_LAYER_ULPS,
+        max_abs_err=f"{layer_abs:.4g}", abs_limit=5e-2,
+        control_k_minus_1=f"{layer_control:.4g}",
+        near_ties=json.dumps(layer_ties), faults=len(layer_faults))
+    check(finite, f"{arch}: non-finite logits")
+    check(dec_rel <= ROW_ULP, f"{arch}: flash decode on the main path "
+          f"differs from its plain version by {dec_rel} of a row's scale")
+    check(logit_err < 5e-2, f"{arch}: flash and plain decode logits differ "
+          f"by {logit_err} where every layer routed alike")
+    check(launches == Lx * T, f"{arch}: flash_decode launched {launches} "
+          f"times in the flash pass; want {Lx * T}")
+    check(not layer_faults, f"{arch}: the MoE layer on the card routes "
+          f"{layer_faults} differently from float32, not at a near tie")
+    check(layer_abs < 5e-2 and layer_rel <= MOE_LAYER_ULPS,
+          f"{arch}: the MoE layer differs from float32 by {layer_abs} "
+          f"({layer_rel} of a row's scale)")
+    say("moe_memory", arch=arch, weight_bytes=weight_bytes,
+        cache_bytes=cache_bytes, prefill_peak_bytes=prefill_peak,
+        max_memory_allocated=torch.cuda.max_memory_allocated())
+    say("moe_prefill", arch=arch, tokens=B * P, seconds=f"{prefill_s:.3f}",
+        tokens_per_s=f"{B * P / prefill_s:.1f}")
+    for impl, step_s in (("flash", flash_s), ("xla", plain_s)):
+        say("moe_decode", arch=arch, attn=impl, steps=T, batch=B,
+            step_p50_ms=f"{percentile(step_s, 50) * 1e3:.3f}",
+            step_p99_ms=f"{percentile(step_s, 99) * 1e3:.3f}",
+            tokens_per_s=f"{B * T / sum(step_s):.1f}")
+    phase_done(f"moe_{arch}", t_start)
+    kernel["launches"] = launches
+    return kernel
+
+
+def moe_phases(args, np, torch) -> list:
+    """Phase 6b: MoE serving, each arch of MOE_RUNS in turn with the memory
+    of the one before handed back (`moe_arch_phase`), then the launcher
+    `serve_lm` of both on the card against the port on the CPU (the same
+    smoke weights: the first 10 tokens must be equal).  Returns the
+    flash-decode kernel's numbers at each arch."""
+    from repro_torch.launch.serve import serve_lm
+    t_start = time.perf_counter()
+    out = []
+    for arch, B, P, T, s_max in MOE_RUNS:
+        out.append(moe_arch_phase(args, np, torch, arch, B, P, T, s_max))
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch, *_ in MOE_RUNS:
+        card = serve_lm(arch, 10, device="cuda")
+        cpu = serve_lm(arch, 10, device="cpu")
+        say("moe_launcher", arch=arch, card=card, cpu=cpu)
+        check(card == cpu, f"{arch}: serve_lm's first 10 tokens on the card "
+              f"{card} differ from the CPU's {cpu}")
+    phase_done("moe", t_start)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2746,6 +3154,65 @@ def recsys_phases(args, np, torch) -> list:
              "launches": launches, "max_abs_err": err, "ms": ms,
              "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
              "library_ms": lib_ms}]
+
+
+# ---------------------------------------------------------------------------
+# the port's examples
+# ---------------------------------------------------------------------------
+
+EXAMPLES = ("torch_quickstart.py", "torch_search_serve.py",
+            "torch_distributed_search.py")
+EXAMPLE_TIMEOUT_S = 600
+
+
+def example_phase():
+    """Phase 9: the port's three search examples (examples/torch_*.py), each
+    a subprocess on the card at its default size, all started at once
+    (their index builds are host work); each must exit 0 within
+    EXAMPLE_TIMEOUT_S.  Prints each one's seconds and last lines; kills
+    any that is still running when the phase ends."""
+    import tempfile
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(root / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
+                               else []))
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs, logs, seconds = {}, {}, {}
+        try:
+            for name in EXAMPLES:
+                logs[name] = open(os.path.join(tmp, name + ".log"), "w+")
+                procs[name] = subprocess.Popen(
+                    [sys.executable, str(root / "examples" / name)],
+                    cwd=root, env=env, stdout=logs[name],
+                    stderr=subprocess.STDOUT)
+            while len(seconds) < len(procs):
+                elapsed = time.perf_counter() - t_start
+                check(elapsed < EXAMPLE_TIMEOUT_S,
+                      f"examples {sorted(set(procs) - set(seconds))} still "
+                      f"running after {EXAMPLE_TIMEOUT_S} s")
+                for name, p in procs.items():
+                    if name not in seconds and p.poll() is not None:
+                        seconds[name] = elapsed
+                time.sleep(0.2)
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+            for fh in logs.values():
+                fh.seek(0)
+        outs = {name: fh.read() for name, fh in logs.items()}
+        for fh in logs.values():
+            fh.close()
+    for name, p in procs.items():
+        tail = outs[name].strip().splitlines()[-3:]
+        say("example", name=name, rc=p.returncode,
+            seconds=f"{seconds[name]:.1f}", tail=json.dumps(tail))
+        check(p.returncode == 0, f"example {name} exited {p.returncode}: "
+              + "\n".join(outs[name].strip().splitlines()[-30:]))
+    phase_done("examples", t_start)
 
 
 # ---------------------------------------------------------------------------

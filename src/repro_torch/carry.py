@@ -12,7 +12,8 @@ index the port built itself.
 
 `lm_params_from_reference(params, cfg, device)` does the same for a
 reference LM parameter dict (numpy arrays, layers stacked [L, ...]): it
-returns the port's `Transformer` with each array cast to `cfg.dtype`;
+returns the port's `Transformer` with each array cast to `cfg.dtype` (an
+MoE router to float32, as the reference stores it);
 `recsys_params_from_reference(params, cfg, device)` returns the port's
 `RecSysModel` for a reference recsys parameter dict (lists of layer dicts
 become `attn.{i}.wq`-style names).
@@ -78,20 +79,23 @@ def lm_params_from_reference(params: dict, cfg: TransformerConfig,
                              device=None) -> Transformer:
     """The port's model holding the reference LM parameters `params`
     (`embed`, `final_norm`, `lm_head` unless tied, and `layers`: a dict of
-    arrays stacked [L, ...]), each cast to `cfg.dtype`, on `device` (the
-    card unless the caller asks for the CPU).  Reads arrays only."""
+    arrays stacked [L, ...]; an MoE model's `router` [L, D, E] and expert
+    weights [L, E, ...]), each cast to its parameter's dtype (`cfg.dtype`;
+    the router float32), on `device` (the card unless the caller asks for
+    the CPU).  Reads arrays only."""
     model = Transformer(cfg, device)
     want = {name for name, _ in model.layers[0].named_parameters()}
     if set(params["layers"]) != want:
+        kind = "an MoE" if cfg.moe else "a dense"
         raise ValueError(f"layer parameters {sorted(params['layers'])}, "
-                         f"want {sorted(want)} (a dense model)")
+                         f"want {sorted(want)} ({kind} model)")
 
     def put(dst: torch.Tensor, arr, what: str):
         src = torch.from_numpy(np.array(arr, dtype=np.float32))
         if tuple(src.shape) != tuple(dst.shape):
             raise ValueError(f"{what}: shape {tuple(src.shape)}, want "
                              f"{tuple(dst.shape)}")
-        dst.copy_(src.to(cfg.dtype))
+        dst.copy_(src.to(dst.dtype))
 
     for name in want:
         stacked = np.asarray(params["layers"][name])

@@ -1,10 +1,11 @@
 """Architecture registry of the port: --arch <id> resolves here.
 
 A copy of src/repro/configs/registry.py for the architectures the port has
-(the dense decoder LMs, the four recsys models and the search system
-`veretennikov`, whose serve tier `launch/serve.py --mode search` drives).
-Every other architecture of the reference raises in `get_arch`, naming the
-ROADMAP.md item that ports it; none gets a stand-in.
+(the dense and MoE decoder LMs, the four recsys models and the search
+system `veretennikov`, whose serve tier `launch/serve.py --mode search`
+drives).  The one other architecture of the reference, the GNN `gin-tu`,
+raises in `get_arch`, naming the ROADMAP.md item that ports it; it gets no
+stand-in.
 """
 from __future__ import annotations
 
@@ -24,6 +25,8 @@ _MODULES = {
     "granite-3-8b": "repro_torch.configs.granite_3_8b",
     "qwen2.5-32b": "repro_torch.configs.qwen2_5_32b",
     "llama3-8b": "repro_torch.configs.llama3_8b",
+    "granite-moe-1b-a400m": "repro_torch.configs.granite_moe_1b_a400m",
+    "moonshot-v1-16b-a3b": "repro_torch.configs.moonshot_v1_16b_a3b",
     "fm": "repro_torch.configs.fm",
     "mind": "repro_torch.configs.mind",
     "autoint": "repro_torch.configs.autoint",
@@ -33,8 +36,6 @@ _MODULES = {
 
 # what ports the rest (ROADMAP.md, "Open items", queue 1)
 _NOT_PORTED = {
-    "granite-moe-1b-a400m": "item 10 (models/moe.py)",
-    "moonshot-v1-16b-a3b": "item 10 (models/moe.py)",
     "gin-tu": "item 10 (models/gnn.py)",
 }
 

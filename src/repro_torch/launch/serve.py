@@ -5,6 +5,7 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --mode search --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --mode search --qps 50 --duration 5
     PYTHONPATH=src python -m repro_torch.launch.serve --mode lm --arch llama3-8b
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode lm --arch granite-moe-1b-a400m
 
   search — (the default) build the paper's indexes over a synthetic corpus
            (300 documents) and time a closed loop: one warm-up batch, then
@@ -18,10 +19,10 @@
            p99 a client-side SLO would see and the exact / degraded / shed
            counts (a closed loop hides queueing delay: it offers the next
            request only after the previous one finished).
-  lm     — greedy decode from the architecture's smoke config with the KV
-           cache decode step (`decode_step`, attention through the
-           flash-decode kernel), batch 2, cache of 128 positions: the
-           reference's `serve_lm`.
+  lm     — greedy decode from the architecture's smoke config (dense or
+           MoE) with the KV cache decode step (`decode_step`, attention
+           through the flash-decode kernel), batch 2, cache of 128
+           positions: the reference's `serve_lm`.
 
 Both run on the card unless `--device cpu`.
 """
@@ -174,13 +175,14 @@ def serve_search_open_loop(qps: float, duration: float, deadline_ms: float,
 
 def serve_lm(arch: str, n_tokens: int, device=None) -> list:
     """Greedy decode of `n_tokens` tokens, batch 2, from token 0, with
-    weights from `init_params` and a generator seeded 0.  Returns batch row
-    0's tokens; ties in the argmax go to the lowest index, as
-    `jnp.argmax`."""
+    weights from `init_params` and a CPU generator seeded 0, moved to the
+    device: the same weights on the card as on the CPU, as the reference's
+    `PRNGKey(0)`.  Returns batch row 0's tokens; ties in the argmax go to
+    the lowest index, as `jnp.argmax`."""
     cfg = get_arch(arch).make_smoke_config()
     dev = resolve_device(device)
-    model = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                            dev)
+    model = tfm.init_params(cfg, torch.Generator().manual_seed(0),
+                            "cpu").to(dev)
     B, S_max = 2, 128
     cache = tfm.init_cache(cfg, B, S_max, device=dev)
     tok = torch.zeros((B,), dtype=torch.int64, device=dev)

@@ -1,15 +1,20 @@
-"""Decoder-only LM (dense GQA) — granite / qwen / llama, inference only.
+"""Decoder-only LM (dense GQA or MoE) — granite / qwen / llama / moonshot,
+inference only.
 
-The port of src/repro/models/transformer.py without MoE and without the
-training path (`loss_fn`, remat, sharding pins).  One `DecoderLayer`
-module per layer instead of weight-stacked scans; parameter names and
-layouts follow the reference's dict (`wq` [D, Hq * hd], `wo` [Hq * hd, D],
-`embed` [Vp, D], `lm_head` [D, Vp], ...), so carrying weights across is a
-per-layer slice (`repro_torch.carry.lm_params_from_reference`).
+The port of src/repro/models/transformer.py without the training path
+(`loss_fn`, remat, the capacity dispatch of `train=True`, sharding pins).
+One `DecoderLayer` module per layer instead of weight-stacked scans;
+parameter names and layouts follow the reference's dict (`wq` [D, Hq *
+hd], `wo` [Hq * hd, D], `embed` [Vp, D], `lm_head` [D, Vp], ...), so
+carrying weights across is a per-layer slice
+(`repro_torch.carry.lm_params_from_reference`).  An MoE layer holds
+`router` [D, E] and `wg`, `wu` [E, D, Fe], `wd` [E, Fe, D] in place of the
+dense MLP and runs `moe.moe_ffn` dropless.
 
-Weights are stored in `cfg.dtype`.  The reference keeps them in float32
-and casts each one to `dtype` at use, which gives the same numbers; stored
-in bf16, llama3-8b's weights take 16 GB instead of 32.  Matmuls run in
+Weights are stored in `cfg.dtype`, the MoE router in float32 as the
+reference stores it.  The reference keeps every weight in float32 and
+casts each one to `dtype` at use, which gives the same numbers; stored in
+bf16, llama3-8b's weights take 16 GB instead of 32.  Matmuls run in
 `dtype`; the logits are float32 products, as the reference's
 `preferred_element_type=float32`.
 """
@@ -23,6 +28,7 @@ from torch import nn
 
 from repro_torch.core.executor import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models.moe import MoEConfig, moe_ffn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,16 +43,10 @@ class TransformerConfig:
     head_dim: Optional[int] = None          # default d_model // n_heads
     qkv_bias: bool = False                  # qwen2.5
     rope_theta: float = 500_000.0
-    moe: Any = None                         # MoE is not ported: must be None
+    moe: Optional[MoEConfig] = None
     tie_embeddings: bool = False
     dtype: Any = torch.bfloat16
     attn_chunk: L.AttnChunking = L.AttnChunking()
-
-    def __post_init__(self):
-        if self.moe is not None:
-            raise NotImplementedError(
-                f"{self.name}: MoE layers are not ported yet (ROADMAP.md "
-                f"queue 1, item 10: models/moe.py)")
 
     @property
     def hd(self) -> int:
@@ -64,18 +64,34 @@ class TransformerConfig:
         attn = D * (Hq + 2 * Hkv) * hd + Hq * hd * D
         if self.qkv_bias:
             attn += (Hq + 2 * Hkv) * hd
-        per_layer = attn + 3 * D * self.d_ff + 2 * D
+        if self.moe:
+            ff = (D * self.moe.n_experts
+                  + 3 * self.moe.n_experts * D * self.moe.d_expert)
+        else:
+            ff = 3 * D * self.d_ff
+        per_layer = attn + ff + 2 * D
         emb = self.vocab * D * (1 if self.tie_embeddings else 2)
         return self.n_layers * per_layer + emb + D
 
+    def active_param_count(self) -> int:
+        """Active parameters per token (MoE: top_k of n_experts)."""
+        if not self.moe:
+            return self.param_count()
+        D = self.d_model
+        ff_all = 3 * self.moe.n_experts * D * self.moe.d_expert
+        ff_act = 3 * self.moe.top_k * D * self.moe.d_expert
+        return self.param_count() - self.n_layers * (ff_all - ff_act)
 
-def _weight(shape, cfg: TransformerConfig, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=cfg.dtype, device=device),
-                        requires_grad=False)
+
+def _weight(shape, cfg: TransformerConfig, device,
+            dtype=None) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype or cfg.dtype,
+                                    device=device), requires_grad=False)
 
 
 class DecoderLayer(nn.Module):
-    """One pre-norm decoder layer: GQA attention with RoPE, SwiGLU MLP."""
+    """One pre-norm decoder layer: GQA attention with RoPE, then a SwiGLU
+    MLP or, where `cfg.moe` is set, a dropless MoE of SwiGLU experts."""
 
     def __init__(self, cfg: TransformerConfig, device):
         super().__init__()
@@ -92,9 +108,16 @@ class DecoderLayer(nn.Module):
             self.bq = _weight((Hq * hd,), cfg, device)
             self.bk = _weight((Hkv * hd,), cfg, device)
             self.bv = _weight((Hkv * hd,), cfg, device)
-        self.wg = _weight((D, F), cfg, device)
-        self.wu = _weight((D, F), cfg, device)
-        self.wd = _weight((F, D), cfg, device)
+        if cfg.moe:
+            E, Fe = cfg.moe.n_experts, cfg.moe.d_expert
+            self.router = _weight((D, E), cfg, device, torch.float32)
+            self.wg = _weight((E, D, Fe), cfg, device)
+            self.wu = _weight((E, D, Fe), cfg, device)
+            self.wd = _weight((E, Fe, D), cfg, device)
+        else:
+            self.wg = _weight((D, F), cfg, device)
+            self.wu = _weight((D, F), cfg, device)
+            self.wd = _weight((F, D), cfg, device)
 
     def qkv(self, x: torch.Tensor, positions: torch.Tensor):
         """x [B, S, D] -> q [B, S, Hq, hd], k, v [B, S, Hkv, hd], RoPE on
@@ -112,10 +135,16 @@ class DecoderLayer(nn.Module):
         return q, k, v.reshape(B, S, cfg.n_kv_heads, cfg.hd)
 
     def attn_out(self, x: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
-        """Residual after attention and the MLP: o is [..., Hq, hd]."""
+        """Residual after attention and the MLP (or the MoE, dropless):
+        o is [..., Hq, hd]."""
+        cfg = self.cfg
         x = x + o.reshape(*o.shape[:-2], -1) @ self.wo
         h = L.rms_norm(x, self.ln2)
-        return x + L.swiglu(h, self.wg, self.wu, self.wd, self.cfg.dtype)
+        if cfg.moe:
+            y, _ = moe_ffn(h, self.router, self.wg, self.wu, self.wd,
+                           cfg.moe, cfg.dtype, dropless=True)
+            return x + y
+        return x + L.swiglu(h, self.wg, self.wu, self.wd, cfg.dtype)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor):
         """x [B, S, D] -> (x', k, v): the whole prompt at once, through the
@@ -167,15 +196,15 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
                 device=None) -> Transformer:
     """A model with the reference's initial scales (`init_params`), drawn
     tensor by tensor from `generator` (a generator on `device`) on `device`.
-    Norm scales 1, biases 0."""
+    Norm scales 1, biases 0; an MoE layer's router in float32."""
     model = Transformer(cfg, device)
     dev = model.device
-    D, Hq, hd, F, Lx = (cfg.d_model, cfg.n_heads, cfg.hd, cfg.d_ff,
-                        cfg.n_layers)
+    D, Hq, hd, Lx = cfg.d_model, cfg.n_heads, cfg.hd, cfg.n_layers
+    F = cfg.moe.d_expert if cfg.moe else cfg.d_ff
 
-    def init(shape, scale=None):
-        return L.dense_init(generator, shape, cfg.dtype, scale=scale,
-                            device=dev)
+    def init(shape, scale=None, dtype=None):
+        return L.dense_init(generator, shape, dtype or cfg.dtype,
+                            scale=scale, device=dev)
 
     for layer in model.layers:
         layer.ln1.fill_(1)
@@ -186,6 +215,8 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
         layer.wo.copy_(init(layer.wo.shape,
                             (Hq * hd) ** -0.5 / (2 * Lx) ** 0.5))
         layer.wd.copy_(init(layer.wd.shape, F ** -0.5 / (2 * Lx) ** 0.5))
+        if cfg.moe:
+            layer.router.copy_(init(layer.router.shape, dtype=torch.float32))
         if cfg.qkv_bias:
             for b in (layer.bq, layer.bk, layer.bv):
                 b.zero_()
@@ -204,7 +235,7 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
 def forward(model: Transformer, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """tokens [B, S] -> logits [B, S, Vp] float32 (the reference's forward
-    at inference: dense, so no aux loss)."""
+    at inference: MoE layers dropless; the aux loss is not returned)."""
     S = tokens.shape[1]
     x = model.embed[tokens]
     if positions is None:

@@ -191,8 +191,10 @@ def test_port_imports_without_jax_or_reference():
         "import repro_torch.kernels.segment_bag\n"
         "import repro_torch.serve.front, repro_torch.core.segments\n"
         "import repro_torch.dist.fault_tolerance, repro_torch.dist.chaos\n"
+        "import repro_torch.models.moe, repro_torch.dist.collectives\n"
         "from repro_torch.configs.registry import get_arch\n"
         "assert get_arch('llama3-8b').make_config().n_layers == 32\n"
+        "assert get_arch('moonshot-v1-16b-a3b').make_config().moe.top_k == 6\n"
         "for a in ('fm', 'autoint', 'bst', 'mind'):\n"
         "    assert get_arch(a).make_config().model == a\n"
         "bad = [m for m in sys.modules if m == 'repro' "
@@ -211,6 +213,7 @@ def test_port_sources_never_import_jax_or_reference():
                          r"from repro\.|from repro |import repro$)", re.M)
     files = list((SRC / "repro_torch").rglob("*.py"))
     files.append(SRC.parent / "chip_smoke.py")
+    files += sorted((SRC.parent / "examples").glob("torch_*.py"))
     assert len(files) > 20
     for sub in ("core", "kernels", "models", "configs", "launch", "data",
                 "serve", "dist"):
