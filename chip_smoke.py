@@ -160,8 +160,29 @@ Phases, each reported on its own lines:
    candidates, AutoInt and BST cut to 65,536; MIND's serve_bulk is cut,
    each cut printed with its reason); QPS and step p50 / p99 per shape,
    peak memory;
-9. examples — examples/torch_quickstart.py, torch_search_serve.py and
-   torch_distributed_search.py (one NCCL rank per card), each a
+8b. training — (a) one `loss_fn` + AdamW step of the llama3-8b and
+   granite-moe-1b-a400m smoke configs (float32, remat) on the card
+   against the same step of the port on the CPU from the same weights and
+   `lm_batches` batch: the loss and every gradient within 2e-5 of its
+   largest magnitude, AdamW on the card from the CPU's gradients within
+   2e-5 of the CPU's new parameters, every routing difference a near tie
+   (printed); remat on against off on the card the same way; (b)
+   granite-moe-1b-a400m at full width and depth (bf16 compute, float32
+   params and AdamW state, remat) at train_4k's sequence, batch cut to 4
+   (printed with its reason), 6 steps on one fixed batch: losses, aux and
+   grad norms finite, the last loss below the first; step p50, tokens/s,
+   MFU (its counts on the line), peak memory and one traced step's device
+   busy ms against its wall ms; (c) FM at full width and train_batch, its
+   bag sums through the segment-bag kernel under `ops.SegmentBagFn`: the
+   first step's loss and gradients against the plain bag under autograd
+   on the card (2e-5), 3 AdamW steps with the kernel's launches counted
+   (2 a forward), steps/s and examples/s; (d) AutoInt and BST at
+   train_batch and MIND at 16384 (cut printed with its reason), 2 steps
+   each, finite; (e) `launch/train.py --arch fm --steps 6` with no
+   `--device` (the card): finite, 12 bag launches;
+9. examples — examples/torch_quickstart.py, torch_search_serve.py,
+   torch_distributed_search.py (one NCCL rank per card) and
+   torch_train_lm.py (300 steps of a ~100M-parameter LM), each a
    subprocess on the card at its default size, all at once: each must
    exit 0; their seconds.
 
@@ -169,7 +190,9 @@ Any failed check exits non-zero.  Before the last line it prints one
 `kernels` JSON line for all seven kernels (the search kernels' `launches`
 count phases 4, 4b and 4c, `serve_launches` phase 4b alone,
 `front_launches` phase 4c alone; flash decode's count phases 6 and 6b,
-and its `moe_shapes` hold its numbers at the two MoE shapes); the last
+and its `moe_shapes` hold its numbers at the two MoE shapes; the segment
+bag's `launches` count phase 8, its `train_launches` phase 8b (c)'s
+steps); the last
 line of
 standard output
 is `{"ok": true, "device": {...}}`.  Without a CUDA device, or without the
@@ -689,6 +712,10 @@ def run(args) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     kernels += recsys_phases(args, np, torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    bag = next(k for k in kernels if k["name"] == "segment_bag")
+    bag["train_launches"] = train_phases(args, np, torch, card)
     gc.collect()
     torch.cuda.empty_cache()
     example_phase()
@@ -2070,7 +2097,7 @@ def lm_phases(args, np, torch) -> list:
     check(P + T <= s_max, f"prompt {P} + steps {T} > cache {s_max}")
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    model = tfm.init_params(cfg, gen, "cuda")
+    model = tfm.init_params(tfm.serving_config(cfg), gen, "cuda")
     prompt = torch.randint(0, cfg.vocab, (B, P), generator=gen, device="cuda")
     torch.cuda.synchronize()
     weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
@@ -2460,7 +2487,7 @@ def moe_arch_phase(args, np, torch, arch, B, P, T, s_max) -> dict:
         cut = MOE_CACHE_CUT
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    model = tfm.init_params(cfg, gen, "cuda")
+    model = tfm.init_params(tfm.serving_config(cfg), gen, "cuda")
     prompt = torch.randint(0, cfg.vocab, (B, P), generator=gen, device="cuda")
     torch.cuda.synchronize()
     Lx, mcfg = cfg.n_layers, cfg.moe
@@ -3157,16 +3184,393 @@ def recsys_phases(args, np, torch) -> list:
 
 
 # ---------------------------------------------------------------------------
+# training (phase 8b)
+# ---------------------------------------------------------------------------
+
+TRAIN_CHECK_ARCHS = ("llama3-8b", "granite-moe-1b-a400m")  # (a), smoke size
+TRAIN_CHECK_SHAPE = (4, 64)    # (a): batch and sequence of the one step
+TRAIN_TOL = 2e-5               # the model zoo's float32 tolerance
+TRAIN_MOE_ARCH = "granite-moe-1b-a400m"
+TRAIN_MOE_BATCH = 4
+TRAIN_MOE_STEPS = 6
+TRAIN_MOE_CUT = (
+    "train_4k (configs/registry.py: seq 4096, global batch 256) with the "
+    "batch cut to 4: one card holds 22.2 GB of float32 params, grads, m and "
+    "v (1.385 G x 16 B), ~5.4 GB a row of S x S float32 attention inside "
+    "the layer being recomputed and ~3.2 GB a row of [4096, 49408] float32 "
+    "logits with their gradient: batch 4 peaks near 40 GB of the card's "
+    "80, and each further row adds ~8.6 GB")
+TRAIN_FM_STEPS = 3
+TRAIN_OTHER_STEPS = 2
+TRAIN_MIND_BATCH = 16384
+TRAIN_MIND_CUT = (
+    "train_batch (configs/registry.py: batch 65536) cut to 16384 for MIND: "
+    "at 65536 its [B, B] float32 in-batch logits are 17.2 GB before the "
+    "softmax and its gradient")
+
+
+@contextlib.contextmanager
+def replaced(module, name, fn):
+    """Within the block, `module.name` is `fn`."""
+    old = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def rel_err(torch, got, want) -> float:
+    """max |got - want| over the largest |want| (0 for an all-zero want
+    that got equals)."""
+    e = float((got.float() - want.float()).abs().max())
+    return e / max(float(want.float().abs().max()), 1e-30) if e else 0.0
+
+
+def device_trace(torch, fn):
+    """Wall and device time of one call of `fn` under torch.profiler: the
+    device's busy ms (the sum of its kernels' times), its idle share and
+    the kernels that take the most time.  A profiler that records no
+    device activity gives {"traced": False} and a reason."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                us = e.time_range.end - e.time_range.start
+                by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3
+    except Exception as e:                 # a diagnostic: the run goes on
+        return {"traced": False, "reason": json.dumps(f"{type(e).__name__}: {e}")}
+    if not by_name:
+        return {"traced": False, "reason": "no device activity recorded"}
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return {"traced": True, "wall_ms": f"{wall_ms:.3f}",
+            "device_busy_ms": f"{busy:.3f}",
+            "device_idle_share": f"{1 - busy / wall_ms:.3f}",
+            "kernel_kinds": len(by_name),
+            "top": json.dumps({k[:60]: round(v, 3) for k, v in top})}
+
+
+def adamw_from(torch, opt, ocfg, init, grads, device):
+    """AdamW's first step from the weights `init` with the gradients
+    `grads` (CPU tensors), on `device`: the new parameters on the CPU."""
+    params = {k: v.to(device, copy=True) for k, v in init.items()}
+    opt.apply_updates(ocfg, params, {k: g.to(device) for k, g in grads.items()},
+                      opt.init_state(ocfg, params))
+    return {k: p.cpu() for k, p in params.items()}
+
+
+def lm_check_step(torch, tfm, tl, opt, moe, cfg, init, batch, ocfg, device):
+    """One loss_fn + AdamW step of `cfg` from the weights `init` (CPU
+    tensors) on `device`: (loss, {name: gradient}, {name: new parameter},
+    the (probs, gate_idx) of every `moe.route` call), all on the CPU."""
+    model = tfm.Transformer(cfg, device)
+    tl.load_params(model, init)
+    tb = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    routes = []
+    with recording(moe, "route", routes):
+        loss, _, grads = tl.value_and_grad(tfm.loss_fn, model, tb)
+    grads = {k: g.cpu() for k, g in grads.items()}
+    return (loss.cpu(), grads, adamw_from(torch, opt, ocfg, init, grads, device),
+            [(out[0].detach().cpu(), out[2].cpu()) for _, out in routes])
+
+
+def held_step(torch, moe, what, got, want, n_routes, update=None):
+    """Phase 8b (a)'s check of one step against another: the loss and
+    every gradient within TRAIN_TOL of the tensor's largest magnitude and
+    every routing difference a near tie in the forward's routing (the
+    first `n_routes` `moe.route` calls of each: remat routes each layer
+    again in the backward).  `update`, the new parameters of `got`'s
+    optimizer from `want`'s gradients, within TRAIN_TOL of each tensor's
+    largest magnitude of `want`'s.  The two full steps' parameters are
+    printed, not held: AdamW's first update is ~lr * g / (|g| + eps), so
+    an element whose gradient is near eps moves by an amount that the
+    gradient's last bits set (`near_eps` counts the nonzero gradient
+    elements under 100 eps).  Returns the errors and the near ties."""
+    (l1, g1, p1, r1), (l2, g2, p2, r2) = got, want
+    loss_err = rel_err(torch, l1, l2)
+    grad_err = max(rel_err(torch, g1[k], g2[k]) for k in g2)
+    near_eps = sum(int(((g != 0) & (g.abs() < 100 * 1e-8)).sum())
+                   for g in g2.values())
+    check(len(r1) in (n_routes, 2 * n_routes)
+          and len(r2) in (n_routes, 2 * n_routes),
+          f"{what}: {len(r1)} / {len(r2)} routings, want {n_routes} each "
+          f"(twice that with remat)")
+    ties = []
+    for i, ((pa, ia), (pb, ib)) in enumerate(zip(r1[:n_routes],
+                                                 r2[:n_routes])):
+        differs, gap, near = moe.routing_differences(pa, ia, pb, ib)
+        for t in torch.nonzero(differs.reshape(-1)).flatten().tolist():
+            check(bool(near.reshape(-1)[t]), f"{what}: route call {i} token "
+                  f"{t} routed differently with a gap of "
+                  f"{float(gap.reshape(-1)[t]):.3g}, not a near tie")
+            ties.append({"call": i, "token": t,
+                         "gap": float(f"{float(gap.reshape(-1)[t]):.3g}")})
+    out = {"loss_rel_err": f"{loss_err:.3g}", "grad_rel_err": f"{grad_err:.3g}",
+           "step_param_abs_err": f"{max(float((p1[k] - p2[k]).abs().max()) for k in p2):.3g}",
+           "near_eps": near_eps, "routing_near_ties": json.dumps(ties)}
+    errs = [loss_err, grad_err]
+    if update is not None:
+        upd = max(rel_err(torch, update[k], p2[k]) for k in p2)
+        out["update_rel_err"] = f"{upd:.3g}"
+        errs.append(upd)
+    check(max(errs) <= TRAIN_TOL and not ties,
+          f"{what}: {out} (limit {TRAIN_TOL})")
+    return out
+
+
+def train_phases(args, np, torch, card) -> int:
+    """Phase 8b: training.  (a) one loss_fn + AdamW step of the llama3-8b
+    and granite-moe-1b-a400m smoke configs (float32, remat) on the card
+    against the same step of the port on the CPU, and remat on against off
+    on the card; (b) granite-moe-1b-a400m at full width and depth (bf16
+    compute, float32 params and AdamW state, remat) on train_4k's sequence
+    with the batch cut, TRAIN_MOE_STEPS steps on one fixed batch: finite
+    losses, aux and grad norms, the last loss below the first, step time,
+    tokens/s, MFU, peak memory and one traced step; (c) FM at full width
+    and train_batch, its bag sums through the segment-bag kernel under
+    `ops.SegmentBagFn`: the first step's loss and gradients against the
+    plain bag under autograd on the card, then TRAIN_FM_STEPS AdamW steps
+    with the kernel's launches counted (two per forward); (d) AutoInt and
+    BST at train_batch and MIND cut, TRAIN_OTHER_STEPS steps each, finite;
+    (e) `launch/train.py --arch fm --steps 6` on its default device (the
+    card), the bag kernel launched twice a step.  Returns the segment-bag
+    launches of (c)'s steps."""
+    import dataclasses
+    from repro_torch.configs.registry import (LM_SHAPES, RECSYS_SHAPES,
+                                              get_arch)
+    from repro_torch.data.lm_data import lm_batches
+    from repro_torch.data.recsys_data import ClickLog
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.models import recsys as rec
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_loop as tl
+
+    t_start = t_phase = time.perf_counter()
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "float32 products must not run in TF32 for the training checks")
+
+    # -- (a) the card against the CPU at smoke size --------------------------
+    ocfg = opt.OptimizerConfig(lr=1e-3, warmup_steps=1, decay_steps=10)
+    B, S = TRAIN_CHECK_SHAPE
+    for arch in TRAIN_CHECK_ARCHS:
+        cfg = get_arch(arch).make_smoke_config()
+        check(cfg.dtype == cfg.param_dtype == torch.float32 and cfg.remat,
+              f"{arch} smoke is not float32 with remat")
+        cpu = tfm.init_params(cfg, torch.Generator().manual_seed(args.seed),
+                              "cpu")
+        init = {k: p.detach().clone() for k, p in cpu.named_parameters()}
+        del cpu
+        batch = next(lm_batches(cfg.vocab, batch=B, seq_len=S, seed=args.seed))
+        steps = {name: lm_check_step(torch, tfm, tl, opt, moe,
+                                     dataclasses.replace(cfg, remat=remat),
+                                     init, batch, ocfg, dev)
+                 for name, dev, remat in (("card", "cuda", True),
+                                          ("cpu", "cpu", True),
+                                          ("card_no_remat", "cuda", False))}
+        n_routes = cfg.n_layers if cfg.moe else 0
+        update = adamw_from(torch, opt, ocfg, init, steps["cpu"][1], "cuda")
+        vs_cpu = held_step(torch, moe, f"{arch} card vs CPU", steps["card"],
+                           steps["cpu"], n_routes, update)
+        remat = held_step(torch, moe, f"{arch} remat on vs off",
+                          steps["card"], steps["card_no_remat"], n_routes)
+        finite = all(bool(torch.isfinite(g).all())
+                     for g in steps["card"][1].values())
+        check(finite, f"{arch}: non-finite gradients on the card")
+        say("train_check", arch=arch, batch=B, seq=S,
+            loss=f"{float(steps['card'][0]):.6f}",
+            loss_cpu=f"{float(steps['cpu'][0]):.6f}",
+            routes=len(steps["card"][3]),
+            **{f"vs_cpu_{k}": v for k, v in vs_cpu.items()},
+            **{f"remat_{k}": v for k, v in remat.items()})
+        del steps
+    t_phase = phase_done("train_card_vs_cpu", t_phase)
+
+    # -- (b) granite-moe-1b-a400m at full width and depth --------------------
+    cfg = get_arch(TRAIN_MOE_ARCH).make_config()
+    check(cfg.dtype == torch.bfloat16 and cfg.param_dtype == torch.float32
+          and cfg.remat, f"{TRAIN_MOE_ARCH}: not bf16 on float32 params")
+    S = LM_SHAPES["train_4k"]["seq_len"]
+    B = TRAIN_MOE_BATCH
+    say("train_cut", arch=TRAIN_MOE_ARCH, batch=B, seq=S,
+        reason=json.dumps(TRAIN_MOE_CUT))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    model = tfm.init_params(cfg, gen, "cuda")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in next(
+        lm_batches(cfg.vocab, batch=B, seq_len=S, seed=args.seed)).items()}
+    ocfg = opt.OptimizerConfig(lr=1e-3, warmup_steps=1,
+                               decay_steps=10 * TRAIN_MOE_STEPS)
+    step = tl.make_train_step(tfm.loss_fn, ocfg)
+    state = opt.init_state(ocfg, tl.param_dict(model))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    t_phase = phase_done("train_moe_init", t_phase)
+    hist, secs = [], []
+    for _ in range(TRAIN_MOE_STEPS):
+        t0 = time.perf_counter()
+        model, state, m = step(model, state, batch)
+        hist.append({k: float(m[k]) for k in ("loss", "nll", "aux",
+                                               "grad_norm", "lr")})
+        secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    trace = device_trace(torch, lambda: step(model, state, batch))
+    finite = all(math.isfinite(h[k]) for h in hist
+                 for k in ("loss", "aux", "grad_norm"))
+    p50 = percentile(secs, 50)
+    tokens = B * S
+    active = cfg.active_param_count()
+    attn_flops = 12 * S * S * cfg.n_heads * cfg.hd * cfg.n_layers * B
+    flops = 6 * active * tokens + attn_flops
+    say("train_moe", arch=TRAIN_MOE_ARCH, card=json.dumps(card), batch=B,
+        seq=S, steps=TRAIN_MOE_STEPS, params=n_params,
+        active_params=active,
+        losses=json.dumps([round(h["loss"], 5) for h in hist]),
+        aux=json.dumps([round(h["aux"], 6) for h in hist]),
+        grad_norms=json.dumps([round(h["grad_norm"], 4) for h in hist]),
+        finite=finite, step_ms=json.dumps([round(s * 1e3, 1) for s in secs]),
+        step_p50_ms=f"{p50 * 1e3:.1f}", tokens_per_s=f"{tokens / p50:.1f}",
+        peak_gb=f"{peak / 1e9:.2f}",
+        mfu=f"{flops / p50 / FLOPS_PER_S['torch.bfloat16']:.4f}",
+        mfu_counts=json.dumps(
+            f"(6 x {active} active params x {tokens} tokens + 12 x S^2 "
+            f"{S}^2 x Hq {cfg.n_heads} x hd {cfg.hd} x L {cfg.n_layers} x "
+            f"B {B} attention) = {flops:.4g} flops per step over the step "
+            f"p50 and 989e12 (bf16 dense peak)"))
+    say("train_moe_trace", arch=TRAIN_MOE_ARCH, **trace)
+    check(finite, f"{TRAIN_MOE_ARCH}: non-finite loss, aux or grad norm: {hist}")
+    check(hist[-1]["loss"] < hist[0]["loss"], f"{TRAIN_MOE_ARCH}: the last "
+          f"loss {hist[-1]['loss']} is not below the first {hist[0]['loss']}")
+    del model, state, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = phase_done("train_moe", t_phase)
+
+    # -- (c) FM at full width through the segment-bag kernel -----------------
+    cfg = get_arch("fm").make_config()
+    B = RECSYS_SHAPES["train_batch"]["batch"]
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    model = rec.init_params(cfg, gen, "cuda")
+    log = ClickLog(cfg.field_vocabs, item_vocab=cfg.item_vocab,
+                   seq_len=cfg.seq_len, seed=args.seed)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in log.ctr_batch(B).items()}
+    ops.segment_bag_cuda.launches = 0
+    loss_k, _, grads_k = tl.value_and_grad(rec.loss_fn, model, batch)
+    check(ops.segment_bag_cuda.launches == 2, f"FM's forward launched the "
+          f"bag kernel {ops.segment_bag_cuda.launches} times, want 2")
+    with replaced(ops, "segment_bag", ops.segment_bag_plain):
+        loss_p, _, grads_p = tl.value_and_grad(rec.loss_fn, model, batch)
+    check(ops.segment_bag_cuda.launches == 2,
+          "the plain path launched the bag kernel")
+    loss_err = float((loss_k - loss_p).abs())
+    grad_errs = {k: rel_err(torch, grads_k[k], grads_p[k]) for k in grads_p}
+    del grads_k, grads_p
+    ocfg = opt.OptimizerConfig(lr=1e-3, warmup_steps=1, decay_steps=10)
+    step = tl.make_train_step(rec.loss_fn, ocfg)
+    state = opt.init_state(ocfg, tl.param_dict(model))
+    torch.cuda.synchronize()
+    ops.segment_bag_cuda.launches = 0
+    losses, secs = [], []
+    for _ in range(TRAIN_FM_STEPS):
+        t0 = time.perf_counter()
+        model, state, m = step(model, state, batch)
+        losses.append((float(m["loss"]), float(m["grad_norm"])))
+        secs.append(time.perf_counter() - t0)
+    train_launches = ops.segment_bag_cuda.launches
+    finite = all(math.isfinite(x) for pair in losses for x in pair)
+    say("train_fm", batch=B, table=tuple(model.table.shape),
+        loss_kernel=f"{float(loss_k):.7f}", loss_plain=f"{float(loss_p):.7f}",
+        loss_abs_err=f"{loss_err:.3g}",
+        grad_rel_err=json.dumps({k: float(f"{v:.3g}")
+                                 for k, v in grad_errs.items()}),
+        steps=TRAIN_FM_STEPS, losses=json.dumps([round(x[0], 6) for x in losses]),
+        finite=finite, segment_bag_launches=train_launches,
+        steps_per_s=f"{len(secs) / sum(secs):.2f}",
+        examples_per_s=f"{B * len(secs) / sum(secs):.1f}",
+        step_p50_ms=f"{percentile(secs, 50) * 1e3:.2f}")
+    check(loss_err <= TRAIN_TOL, f"FM loss through the kernel differs from "
+          f"the plain bag's by {loss_err}")
+    check(max(grad_errs.values()) <= TRAIN_TOL, f"FM gradients through the "
+          f"kernel differ from the plain bag's: {grad_errs}")
+    check(finite, f"FM: non-finite loss or grad norm: {losses}")
+    check(train_launches == 2 * TRAIN_FM_STEPS, f"FM's {TRAIN_FM_STEPS} "
+          f"steps launched the bag kernel {train_launches} times")
+    del model, state, batch, step, log
+    torch.cuda.empty_cache()
+    t_phase = phase_done("train_fm", t_phase)
+
+    # -- (d) AutoInt, BST and MIND -------------------------------------------
+    say("train_cut", arch="mind", batch=TRAIN_MIND_BATCH,
+        reason=json.dumps(TRAIN_MIND_CUT))
+    for arch in ("autoint", "bst", "mind"):
+        cfg = get_arch(arch).make_config()
+        B = (TRAIN_MIND_BATCH if arch == "mind"
+             else RECSYS_SHAPES["train_batch"]["batch"])
+        model = rec.init_params(cfg, gen, "cuda")
+        log = ClickLog(cfg.field_vocabs, item_vocab=cfg.item_vocab,
+                       seq_len=cfg.seq_len, seed=args.seed)
+        raw = log.ctr_batch(B) if arch == "autoint" else log.seq_batch(B)
+        batch = {k: torch.from_numpy(v).cuda() for k, v in raw.items()}
+        step = tl.make_train_step(rec.loss_fn, ocfg)
+        state = opt.init_state(ocfg, tl.param_dict(model))
+        torch.cuda.synchronize()
+        out, secs = [], []
+        for _ in range(TRAIN_OTHER_STEPS):
+            t0 = time.perf_counter()
+            model, state, m = step(model, state, batch)
+            out.append({k: float(v) for k, v in m.items()})
+            secs.append(time.perf_counter() - t0)
+        finite = all(math.isfinite(o[k]) for o in out
+                     for k in ("loss", "grad_norm"))
+        say("train_recsys", arch=arch, batch=B, steps=TRAIN_OTHER_STEPS,
+            losses=json.dumps([round(o["loss"], 6) for o in out]),
+            grad_norms=json.dumps([round(o["grad_norm"], 5) for o in out]),
+            finite=finite, steps_per_s=f"{len(secs) / sum(secs):.2f}",
+            examples_per_s=f"{B * len(secs) / sum(secs):.1f}")
+        check(finite, f"{arch}: non-finite loss or grad norm: {out}")
+        del model, state, batch, step, log, raw
+        torch.cuda.empty_cache()
+    t_phase = phase_done("train_other_recsys", t_phase)
+
+    # -- (e) the launcher on the card by default ------------------------------
+    from repro_torch.launch import train as train_launcher
+    ops.segment_bag_cuda.launches = 0
+    hist = train_launcher.main(["--arch", "fm", "--steps", "6"])
+    launcher_launches = ops.segment_bag_cuda.launches
+    say("train_launcher", arch="fm", steps=6, history=json.dumps(hist),
+        segment_bag_launches=launcher_launches)
+    check(math.isfinite(hist[-1]["loss"]) and launcher_launches == 12,
+          f"launch/train.py --arch fm --steps 6 on the card: {hist}, "
+          f"{launcher_launches} bag launches (want 12)")
+    phase_done("train_launcher", t_phase)
+    phase_done("train", t_start)
+    return train_launches
+
+
+# ---------------------------------------------------------------------------
 # the port's examples
 # ---------------------------------------------------------------------------
 
 EXAMPLES = ("torch_quickstart.py", "torch_search_serve.py",
-            "torch_distributed_search.py")
+            "torch_distributed_search.py", "torch_train_lm.py")
 EXAMPLE_TIMEOUT_S = 600
 
 
 def example_phase():
-    """Phase 9: the port's three search examples (examples/torch_*.py), each
+    """Phase 9: the port's four examples (examples/torch_*.py), each
     a subprocess on the card at its default size, all started at once
     (their index builds are host work); each must exit 0 within
     EXAMPLE_TIMEOUT_S.  Prints each one's seconds and last lines; kills

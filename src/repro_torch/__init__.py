@@ -9,5 +9,8 @@ the search path and its serve tier (`serve`, over `launch.mesh`), the LM
 serving path and the recsys serving path (`models`, `launch`; the dense
 LMs, recsys models and `veretennikov` of `configs`) launch the
 hand-written CUDA kernels of `repro_torch.kernels` (sources in
-`kernels/csrc/`).  Importing the package sets no global state.
+`kernels/csrc/`).  Single-device training (`train`, `checkpoint`,
+`dist.fault_tolerance.TrainSupervisor`, `launch.train`) trains the LMs and
+recsys models; FM's bag sums take their gradient through the bag kernel.
+Importing the package sets no global state.
 """

@@ -12,8 +12,9 @@ index the port built itself.
 
 `lm_params_from_reference(params, cfg, device)` does the same for a
 reference LM parameter dict (numpy arrays, layers stacked [L, ...]): it
-returns the port's `Transformer` with each array cast to `cfg.dtype` (an
-MoE router to float32, as the reference stores it);
+returns the port's `Transformer` with each array cast to `cfg.dtype` or,
+for training, a `param_dtype` asked for (an MoE router to float32, as the
+reference stores it);
 `recsys_params_from_reference(params, cfg, device)` returns the port's
 `RecSysModel` for a reference recsys parameter dict (lists of layer dicts
 become `attn.{i}.wq`-style names).
@@ -76,14 +77,17 @@ def index_from_reference(ref_index) -> IndexSet:
 
 @torch.no_grad()
 def lm_params_from_reference(params: dict, cfg: TransformerConfig,
-                             device=None) -> Transformer:
+                             device=None, param_dtype=None) -> Transformer:
     """The port's model holding the reference LM parameters `params`
     (`embed`, `final_norm`, `lm_head` unless tied, and `layers`: a dict of
     arrays stacked [L, ...]; an MoE model's `router` [L, D, E] and expert
-    weights [L, E, ...]), each cast to its parameter's dtype (`cfg.dtype`;
-    the router float32), on `device` (the card unless the caller asks for
-    the CPU).  Reads arrays only."""
-    model = Transformer(cfg, device)
+    weights [L, E, ...]), each cast to its parameter's dtype, on `device`
+    (the card unless the caller asks for the CPU).  The weights are
+    stored in `param_dtype`: by default the compute dtype `cfg.dtype`,
+    as served; float32 to train from the reference's float32 weights (the
+    router is float32 always).  Reads arrays only."""
+    pd = cfg.dtype if param_dtype is None else param_dtype
+    model = Transformer(dataclasses.replace(cfg, param_dtype=pd), device)
     want = {name for name, _ in model.layers[0].named_parameters()}
     if set(params["layers"]) != want:
         kind = "an MoE" if cfg.moe else "a dense"

@@ -1,4 +1,9 @@
-"""Straggler-mitigating dispatch over replicated document shards.
+"""Fault tolerance: supervised training with checkpoint restart, and
+straggler-mitigating dispatch over replicated document shards.
+
+`TrainSupervisor` — wraps a deterministic step function with periodic
+checkpointing; an injected (or real) failure rolls back to the latest
+checkpoint and replays.  Deterministic steps => exact state replay.
 
 `ShardDispatcher` — every index shard may have a replica; a shard call that
 fails or exceeds `timeout` is re-dispatched to its replica, and per-shard
@@ -17,6 +22,83 @@ from concurrent.futures import TimeoutError as FutTimeout
 from typing import Callable, Optional, Sequence
 
 import numpy as np
+import torch
+
+
+# ---------------------------------------------------------------------------
+# training supervision
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class FailureReport:
+    failures: int
+    final_step: int
+    restores: int = 0
+
+
+def _clone(tree):
+    """A copy of a state tree whose tensors are new tensors."""
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_clone(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone()
+    return tree
+
+
+class TrainSupervisor:
+    """Run `step_fn` for n_steps under a checkpoint manager, surviving
+    failures by rolling back to the latest checkpoint and replaying (the
+    port of the reference's supervisor; `ckpt_manager` is a
+    `repro_torch.checkpoint.CheckpointManager`)."""
+
+    def __init__(self, ckpt_manager, save_every: int = 100,
+                 max_restores: int = 100):
+        self.mgr = ckpt_manager
+        self.save_every = save_every
+        self.max_restores = max_restores
+
+    def run(self, state, step_fn: Callable, n_steps: int,
+            failure_hook: Optional[Callable[[int], bool]] = None):
+        """step_fn(state, step) -> state; failure_hook(step) -> True injects
+        a failure *before* that step executes.  Returns (state, report).
+        Raises RuntimeError after `max_restores` rollbacks — a fault that
+        recurs at the same step would otherwise loop forever.  The port's
+        steps update tensors in place, so the initial state (the rollback
+        when no checkpoint is left) is kept as a copy."""
+        init_state = _clone(state)
+        self.mgr.save(0, state)
+        step, failures, restores = 0, 0, 0
+        while step < n_steps:
+            nxt = step + 1
+            if failure_hook is not None and failure_hook(nxt):
+                failures += 1
+                if restores >= self.max_restores:
+                    raise RuntimeError(
+                        f"unrecoverable: {restores} restores without "
+                        f"completing step {nxt}")
+                got_step, got = self.mgr.restore_latest(state)
+                if got is None:
+                    step, state = 0, _clone(init_state)
+                else:
+                    step, state = int(got_step), got
+                restores += 1
+                continue
+            state = step_fn(state, nxt)
+            step = nxt
+            if step % self.save_every == 0:
+                self.mgr.save(step, state)
+        if step % self.save_every != 0:
+            self.mgr.save(step, state)
+        return state, FailureReport(failures=failures, final_step=step,
+                                    restores=restores)
+
+
+# ---------------------------------------------------------------------------
+# serving-side shard dispatch
+# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass

@@ -384,6 +384,44 @@ def segment_bag_plain(table: torch.Tensor, ids: torch.Tensor,
                         table.dtype)
 
 
+class SegmentBagFn(torch.autograd.Function):
+    """The bag's sums under autograd: `apply(table, weights, ids, sums)`
+    returns `sums(table, ids, weights)`, float32 [B, D] (on the card
+    `segment_bag_cuda`, the kernel; any function of the kernel's contract
+    in its place, such as `_bag_sums_plain` in the CPU tests).  The
+    backward transposes the gather, as the reference's autodiff of
+    `take` does (the reference has no backward kernel): d table is an
+    `index_add_` of w * grad over the valid ids (ids >= V go to row V - 1,
+    as the forward clamps them; float atomics on the card, so the order
+    of the additions varies), d weights the dot of grad with each id's
+    row.  Negative ids get no gradient; `weights` may be None."""
+
+    @staticmethod
+    def forward(ctx, table, weights, ids, sums):
+        ctx.save_for_backward(table, weights, ids)
+        return sums(table, ids, weights)
+
+    @staticmethod
+    def backward(ctx, grad):
+        table, weights, ids = ctx.saved_tensors
+        V, D = table.shape
+        valid = (ids >= 0)[..., None]                         # [B, F, 1]
+        rows = torch.where(valid[..., 0], ids.long().clamp(max=V - 1), 0)
+        g = grad.float()[:, None, :]                          # [B, 1, D]
+        d_table = d_weights = None
+        if ctx.needs_input_grad[0]:
+            contrib = g if weights is None else g * weights.float()[..., None]
+            contrib = contrib.expand(*ids.shape, D) * valid
+            d_table = torch.zeros((V, D), dtype=torch.float32,
+                                  device=table.device)
+            d_table.index_add_(0, rows.reshape(-1), contrib.reshape(-1, D))
+            d_table = d_table.to(table.dtype)
+        if weights is not None and ctx.needs_input_grad[1]:
+            d_weights = ((g * table[rows].float()).sum(-1)
+                         * valid[..., 0]).to(weights.dtype)
+        return d_table, d_weights, None, None
+
+
 def segment_bag(table: torch.Tensor, ids: torch.Tensor,
                 weights: Optional[torch.Tensor] = None,
                 combine: str = "sum") -> torch.Tensor:
@@ -392,7 +430,9 @@ def segment_bag(table: torch.Tensor, ids: torch.Tensor,
     ids of a wider type are clamped to [-1, V - 1] first, so that none
     wraps in the cast (the kernel clamps int32 ids >= V itself), and the
     float32 sums get the mean and the table's dtype here, as in the
-    reference's wrapper."""
+    reference's wrapper.  With grad enabled the kernel runs under
+    `SegmentBagFn`, so the sums have a gradient (on the CPU the plain
+    version's own)."""
     if _on_cpu(table, "segment_bag"):
         return segment_bag_plain(table, ids, weights, combine)
     _check_bag_args(table, ids, weights, combine)
@@ -403,5 +443,9 @@ def segment_bag(table: torch.Tensor, ids: torch.Tensor,
                              f"kernel's int32 ids")
         ids = ids.clamp(-1, V - 1).to(torch.int32)
     w = None if weights is None else weights.to(table.dtype).contiguous()
-    sums = segment_bag_cuda(table.contiguous(), ids.contiguous(), w)
+    table, ids = table.contiguous(), ids.contiguous()
+    if torch.is_grad_enabled():
+        sums = SegmentBagFn.apply(table, w, ids, segment_bag_cuda)
+    else:
+        sums = segment_bag_cuda(table, ids, w)
     return _bag_combine(sums, ids, combine, table.dtype)

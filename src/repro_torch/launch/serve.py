@@ -179,7 +179,7 @@ def serve_lm(arch: str, n_tokens: int, device=None) -> list:
     device: the same weights on the card as on the CPU, as the reference's
     `PRNGKey(0)`.  Returns batch row 0's tokens; ties in the argmax go to
     the lowest index, as `jnp.argmax`."""
-    cfg = get_arch(arch).make_smoke_config()
+    cfg = tfm.serving_config(get_arch(arch).make_smoke_config())
     dev = resolve_device(device)
     model = tfm.init_params(cfg, torch.Generator().manual_seed(0),
                             "cpu").to(dev)

@@ -4,7 +4,9 @@ serve and retrieval steps.
 The port of `forward_with_cache` and of the recsys cells' step bodies from
 src/repro/launch/steps.py, without the mesh.  The reference module also
 holds the dry-run cells (sharded lowering of every architecture and
-shape) and the training steps, which are not ported yet (ROADMAP.md).
+shape), which are not ported yet (ROADMAP.md, item 10d); training runs
+through `repro_torch.train` (`make_train_step`, `fit`) and
+`launch/train.py`.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ def forward_with_cache(model: Transformer, tokens: torch.Tensor):
     shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.hd)
     ks = torch.empty(shape, dtype=cfg.dtype, device=tokens.device)
     vs = torch.empty_like(ks)
-    x = model.embed[tokens]
+    x = model.embed_tokens(tokens)
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None]
     for layer, ck, cv in zip(model.layers, ks, vs):
         x, k, v = layer(x, positions)

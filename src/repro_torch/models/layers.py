@@ -101,9 +101,11 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     chunk_q == 0 (or S <= chunk_q): the full S x S softmax.  chunk_q > 0:
     online softmax over kv chunks per q chunk; q chunk i visits kv chunks
-    up to its causal horizon only, as the reference's chunked path does.
-    Scores are float32; probabilities are cast to q's dtype before the
-    product with V, as in the reference."""
+    up to its causal horizon only, as the reference's chunked path does;
+    its score chunks are scaled, masked and exponentiated in place unless
+    grad is enabled (autograd keeps the values they replace), with the
+    same numbers either way.  Scores are float32; probabilities are cast
+    to q's dtype before the product with V, as in the reference."""
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
     G = Hq // Hkv
@@ -125,6 +127,8 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"chunked attention needs S ({S}) divisible by "
                              f"chunk_q ({chunk_q}) and chunk_kv ({chunk_kv})")
         out_chunks = []
+        # the score chunks are updated in place unless autograd needs them
+        in_place = not torch.is_grad_enabled()
         # row (g, i) of a grouped q chunk sits at query position i
         row_q = torch.arange(chunk_q, device=q.device).repeat(G)
         for i in range(S // chunk_q):
@@ -139,13 +143,16 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               device=q.device)
             for idx in range(kv_hi // chunk_kv):
                 lo = idx * chunk_kv
-                s = torch.matmul(qi, kt[..., lo:lo + chunk_kv]).mul_(scale)
+                s = torch.matmul(qi, kt[..., lo:lo + chunk_kv])
+                s = s.mul_(scale) if in_place else s * scale
                 if lo + chunk_kv - 1 > i * chunk_q:     # crosses the diagonal
                     k_pos = lo + torch.arange(chunk_kv, device=q.device)
-                    s.masked_fill_(q_pos[:, None] < k_pos[None, :], NEG_INF)
+                    masked = q_pos[:, None] < k_pos[None, :]
+                    s = (s.masked_fill_(masked, NEG_INF) if in_place
+                         else s.masked_fill(masked, NEG_INF))
                 m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
                 alpha = torch.exp(m - m_new)
-                p = s.sub_(m_new).exp_()
+                p = s.sub_(m_new).exp_() if in_place else torch.exp(s - m_new)
                 l = l * alpha + p.sum(dim=-1, keepdim=True)
                 acc = acc * alpha + torch.matmul(
                     p.to(q.dtype).float(), vf[:, :, lo:lo + chunk_kv])

@@ -1,6 +1,5 @@
-"""RecSys architectures over a shared sparse-embedding substrate, inference
-only: the port of src/repro/models/recsys.py without `loss_fn` (training
-is not ported yet).
+"""RecSys architectures over a shared sparse-embedding substrate: the port
+of src/repro/models/recsys.py, serving and training (`loss_fn`).
 
 fm      — Factorization Machine (Rendle ICDM'10): O(nk) sum-square trick.
 autoint — self-attention over field embeddings (arXiv:1810.11921).
@@ -14,13 +13,16 @@ Substrate: all categorical fields share ONE concatenated embedding table
 `index_select`; FM's two bag reductions (the field embeddings' sum and the
 linear term) go through `kernels.ops.segment_bag`, the hand-written
 embedding-bag kernel on the card, as the reference module's docstring
-says bag reductions do.  Everything else is plain tensor code, as it is
-jnp outside any Pallas kernel in the reference.
+says bag reductions do; under autograd the kernel runs inside
+`ops.SegmentBagFn`, whose backward is the scatter-add of the reference's
+gradient of `take`.  Everything else is plain tensor code, as it is jnp
+outside any Pallas kernel in the reference.
 
 `RecSysModel` holds the parameters under the reference dict's names
 (`table`, `w_lin`, `attn.{i}.wq`, `blocks.{i}.ff1`, `mlp.{i}.w`,
 `head_w`, ...), stored in `param_dtype` and cast to `dtype` at use as the
-reference does; the forwards are plain functions of the model.  Products
+reference does, made without `requires_grad` (the training step turns it
+on); the forwards are plain functions of the model.  Products
 the reference asks in float32 (`preferred_element_type`) take float32
 operands here.
 """
@@ -328,8 +330,29 @@ def mind_retrieval_scores(model: RecSysModel, hist: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# serve / retrieval
+# train loss / serve / retrieval
 # ---------------------------------------------------------------------------
+
+def loss_fn(model: RecSysModel, batch: dict):
+    """(loss, metrics), the reference's `loss_fn`: MIND's in-batch softmax
+    over `mind_train_logits` (target b is row b's label) with its top-1
+    accuracy `acc`; the CTR models' numerically stable binary cross
+    entropy on `label` with `auc_proxy`, the Pearson correlation of
+    sigmoid(logit) and the label (`jnp.corrcoef`)."""
+    if model.cfg.model == "mind":
+        logits = mind_train_logits(model, batch["hist"], batch["target"])
+        labels = torch.arange(logits.shape[0], device=logits.device)
+        nll = torch.logsumexp(logits, -1) - torch.gather(
+            logits, 1, labels[:, None])[:, 0]
+        acc = (logits.argmax(-1) == labels).float().mean()
+        return nll.mean(), {"acc": acc}
+    logit = serve_scores(model, batch)
+    y = batch["label"].float()
+    loss = torch.mean(torch.clamp(logit, min=0) - logit * y
+                      + torch.log1p(torch.exp(-logit.abs())))
+    auc = torch.corrcoef(torch.stack([torch.sigmoid(logit), y]))[0, 1]
+    return loss, {"auc_proxy": auc}
+
 
 def serve_scores(model: RecSysModel, batch: dict) -> torch.Tensor:
     """float32 [B]: CTR logits, or MIND's label-aware score of the target

@@ -1,22 +1,29 @@
-"""Decoder-only LM (dense GQA or MoE) — granite / qwen / llama / moonshot,
-inference only.
+"""Decoder-only LM (dense GQA or MoE) — granite / qwen / llama / moonshot:
+serving and training.
 
-The port of src/repro/models/transformer.py without the training path
-(`loss_fn`, remat, the capacity dispatch of `train=True`, sharding pins).
+The port of src/repro/models/transformer.py without the sharding pins.
 One `DecoderLayer` module per layer instead of weight-stacked scans;
 parameter names and layouts follow the reference's dict (`wq` [D, Hq *
 hd], `wo` [Hq * hd, D], `embed` [Vp, D], `lm_head` [D, Vp], ...), so
 carrying weights across is a per-layer slice
 (`repro_torch.carry.lm_params_from_reference`).  An MoE layer holds
 `router` [D, E] and `wg`, `wu` [E, D, Fe], `wd` [E, Fe, D] in place of the
-dense MLP and runs `moe.moe_ffn` dropless.
+dense MLP.
 
-Weights are stored in `cfg.dtype`, the MoE router in float32 as the
-reference stores it.  The reference keeps every weight in float32 and
-casts each one to `dtype` at use, which gives the same numbers; stored in
-bf16, llama3-8b's weights take 16 GB instead of 32.  Matmuls run in
-`dtype`; the logits are float32 products, as the reference's
-`preferred_element_type=float32`.
+Weights are stored in `cfg.param_dtype` (float32, as the reference's
+default) and cast to `cfg.dtype` at use, as the reference does; the MoE
+router is stored in float32 always.  Serving builds its models with
+`param_dtype = cfg.dtype` (`serving_config`): that gives the same numbers
+(the cast at use is then a no-op), and llama3-8b's weights take 16 GB in
+bf16 instead of 32.  Matmuls run in `dtype`; the logits are float32
+products, as the reference's `preferred_element_type=float32`.
+
+`forward(..., train=True)` and `loss_fn` are the training path: MoE
+layers run the capacity dispatch (`dropless=False`) and their aux losses
+are summed, and with `cfg.remat` each layer is recomputed in the backward
+(`torch.utils.checkpoint`, the reference's per-layer `jax.checkpoint`).
+The serving functions (`forward` without `train`, `decode_step`) run
+under `torch.no_grad()` and the MoE layers dropless.
 """
 from __future__ import annotations
 
@@ -24,7 +31,9 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.executor import resolve_device
 from repro_torch.models import layers as L
@@ -46,6 +55,8 @@ class TransformerConfig:
     moe: Optional[MoEConfig] = None
     tie_embeddings: bool = False
     dtype: Any = torch.bfloat16
+    param_dtype: Any = torch.float32
+    remat: bool = True
     attn_chunk: L.AttnChunking = L.AttnChunking()
 
     @property
@@ -83,15 +94,23 @@ class TransformerConfig:
         return self.param_count() - self.n_layers * (ff_all - ff_act)
 
 
+def serving_config(cfg: TransformerConfig) -> TransformerConfig:
+    """`cfg` with its weights stored in the compute dtype, for serving."""
+    return dataclasses.replace(cfg, param_dtype=cfg.dtype)
+
+
 def _weight(shape, cfg: TransformerConfig, device,
             dtype=None) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=dtype or cfg.dtype,
+    """An uninitialised parameter in `cfg.param_dtype` (or `dtype`), made
+    without `requires_grad`: the training step turns it on."""
+    return nn.Parameter(torch.empty(shape, dtype=dtype or cfg.param_dtype,
                                     device=device), requires_grad=False)
 
 
 class DecoderLayer(nn.Module):
     """One pre-norm decoder layer: GQA attention with RoPE, then a SwiGLU
-    MLP or, where `cfg.moe` is set, a dropless MoE of SwiGLU experts."""
+    MLP or, where `cfg.moe` is set, an MoE of SwiGLU experts (dropless
+    when serving, the capacity dispatch when training)."""
 
     def __init__(self, cfg: TransformerConfig, device):
         super().__init__()
@@ -123,37 +142,56 @@ class DecoderLayer(nn.Module):
         """x [B, S, D] -> q [B, S, Hq, hd], k, v [B, S, Hkv, hd], RoPE on
         q and k at `positions` (broadcastable to [B, S])."""
         cfg = self.cfg
+        dt = cfg.dtype
         B, S, _ = x.shape
         h = L.rms_norm(x, self.ln1)
-        q, k, v = h @ self.wq, h @ self.wk, h @ self.wv
+        q, k, v = h @ self.wq.to(dt), h @ self.wk.to(dt), h @ self.wv.to(dt)
         if cfg.qkv_bias:
-            q, k, v = q + self.bq, k + self.bk, v + self.bv
+            q, k, v = q + self.bq.to(dt), k + self.bk.to(dt), v + self.bv.to(dt)
         q = L.apply_rope(q.reshape(B, S, cfg.n_heads, cfg.hd), positions,
                          cfg.rope_theta)
         k = L.apply_rope(k.reshape(B, S, cfg.n_kv_heads, cfg.hd), positions,
                          cfg.rope_theta)
         return q, k, v.reshape(B, S, cfg.n_kv_heads, cfg.hd)
 
-    def attn_out(self, x: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
-        """Residual after attention and the MLP (or the MoE, dropless):
-        o is [..., Hq, hd]."""
+    def mlp_out(self, x: torch.Tensor, o: torch.Tensor,
+                dropless: bool = True):
+        """(residual after attention and the MLP or MoE, the layer's aux
+        loss: float32, 0 for a dense layer): o is [..., Hq, hd]."""
         cfg = self.cfg
-        x = x + o.reshape(*o.shape[:-2], -1) @ self.wo
+        x = x + o.reshape(*o.shape[:-2], -1) @ self.wo.to(cfg.dtype)
         h = L.rms_norm(x, self.ln2)
         if cfg.moe:
-            y, _ = moe_ffn(h, self.router, self.wg, self.wu, self.wd,
-                           cfg.moe, cfg.dtype, dropless=True)
-            return x + y
-        return x + L.swiglu(h, self.wg, self.wu, self.wd, cfg.dtype)
+            y, aux = moe_ffn(h, self.router, self.wg, self.wu, self.wd,
+                             cfg.moe, cfg.dtype, dropless=dropless)
+            return x + y, aux
+        y = L.swiglu(h, self.wg, self.wu, self.wd, cfg.dtype)
+        return x + y, torch.zeros((), dtype=torch.float32, device=x.device)
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor):
-        """x [B, S, D] -> (x', k, v): the whole prompt at once, through the
-        reference's `causal_attention` (full or chunked by
+    def attn_out(self, x: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+        """Residual after attention and the MLP (or the MoE, dropless)."""
+        return self.mlp_out(x, o)[0]
+
+    def attention(self, x: torch.Tensor, positions: torch.Tensor):
+        """(q, k, v, o) of the whole sequence x [B, S, D] at once, through
+        the reference's `causal_attention` (full or chunked by
         `cfg.attn_chunk`)."""
         q, k, v = self.qkv(x, positions)
         cq, ckv = self.cfg.attn_chunk.for_seq(x.shape[1])
-        o = L.causal_attention(q, k, v, chunk_q=cq, chunk_kv=ckv)
+        return q, k, v, L.causal_attention(q, k, v, chunk_q=cq, chunk_kv=ckv)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor):
+        """x [B, S, D] -> (x', k, v): the whole prompt at once (serving)."""
+        _, k, v, o = self.attention(x, positions)
         return self.attn_out(x, o), k, v
+
+    def block(self, x: torch.Tensor, positions: torch.Tensor,
+              dropless: bool = True):
+        """x [B, S, D] -> (x', aux): the layer as `forward` of the whole
+        model runs it (training: `dropless=False`, the MoE's capacity
+        dispatch)."""
+        o = self.attention(x, positions)[3]
+        return self.mlp_out(x, o, dropless)
 
 
 class Transformer(nn.Module):
@@ -184,7 +222,14 @@ class Transformer(nn.Module):
         x = L.rms_norm(x, self.final_norm)
         head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
         with L.exact_f32_products(x):
-            return x.float() @ head.float()
+            return x.float() @ head.to(self.cfg.dtype).float()
+
+    def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Rows of `embed` at tokens, in the compute dtype.  `F.embedding`
+        rather than indexing: its backward adds a repeated token's rows in
+        a fixed order (indexing's accumulates in parallel on the CPU, in
+        an order that varies from run to run)."""
+        return F.embedding(tokens, self.embed).to(self.cfg.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -195,15 +240,16 @@ class Transformer(nn.Module):
 def init_params(cfg: TransformerConfig, generator: torch.Generator,
                 device=None) -> Transformer:
     """A model with the reference's initial scales (`init_params`), drawn
-    tensor by tensor from `generator` (a generator on `device`) on `device`.
-    Norm scales 1, biases 0; an MoE layer's router in float32."""
+    tensor by tensor from `generator` (a generator on `device`) on `device`
+    and stored in `cfg.param_dtype`.  Norm scales 1, biases 0; an MoE
+    layer's router in float32."""
     model = Transformer(cfg, device)
     dev = model.device
     D, Hq, hd, Lx = cfg.d_model, cfg.n_heads, cfg.hd, cfg.n_layers
     F = cfg.moe.d_expert if cfg.moe else cfg.d_ff
 
     def init(shape, scale=None, dtype=None):
-        return L.dense_init(generator, shape, dtype or cfg.dtype,
+        return L.dense_init(generator, shape, dtype or cfg.param_dtype,
                             scale=scale, device=dev)
 
     for layer in model.layers:
@@ -231,19 +277,55 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
 # forward
 # ---------------------------------------------------------------------------
 
-@torch.no_grad()
 def forward(model: Transformer, tokens: torch.Tensor,
-            positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """tokens [B, S] -> logits [B, S, Vp] float32 (the reference's forward
-    at inference: MoE layers dropless; the aux loss is not returned)."""
+            positions: Optional[torch.Tensor] = None, train: bool = False):
+    """tokens [B, S] -> logits [B, S, Vp] float32: the reference's forward
+    at inference, under `torch.no_grad()` (MoE layers dropless; the aux
+    loss is not returned).  `train=True`: (logits, aux) with autograd on,
+    the MoE layers on the capacity dispatch and their aux losses summed
+    (float32 scalar), each layer recomputed in the backward when
+    `cfg.remat`."""
+    if not train:
+        with torch.no_grad():
+            return _forward(model, tokens, positions, train=False)[0]
+    return _forward(model, tokens, positions, train=True)
+
+
+def _forward(model: Transformer, tokens: torch.Tensor,
+             positions: Optional[torch.Tensor], train: bool):
     S = tokens.shape[1]
-    x = model.embed[tokens]
+    x = model.embed_tokens(tokens)
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device)[None, :]
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for layer in model.layers:
-        x, _, _ = layer(x, positions)
-    return model.logits(x)
+        if train and model.cfg.remat:
+            x, a = checkpoint(layer.block, x, positions, False,
+                              use_reentrant=False)
+        else:
+            x, a = layer.block(x, positions, dropless=not train)
+        aux = aux + a
+    return model.logits(x), aux
+
+
+def loss_fn(model: Transformer, batch: dict):
+    """batch: tokens [B, S], labels [B, S] (< 0 = ignore) -> (loss + aux,
+    {"nll", "aux"}): the reference's `loss_fn`, the softmax in float32,
+    the vocabulary's padding rows masked to -1e30."""
+    cfg = model.cfg
+    logits, aux = forward(model, batch["tokens"].long(), train=True)
+    logits = logits.float()
+    if cfg.vocab_padded != cfg.vocab:
+        pad = torch.arange(cfg.vocab_padded, device=logits.device) >= cfg.vocab
+        logits = logits.masked_fill(pad, L.NEG_INF)
+    labels = batch["labels"].long()
+    valid = labels >= 0
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    nll = (logz - gold) * valid.float()
+    loss = nll.sum() / valid.sum().clamp(min=1)
+    return loss + aux, {"nll": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -272,7 +354,7 @@ def decode_step(model: Transformer, cache: dict, tokens: torch.Tensor,
     cur_len = int(cur_len)
     B = tokens.shape[0]
     dev = tokens.device
-    x = model.embed[tokens][:, None]                          # [B, 1, D]
+    x = model.embed_tokens(tokens)[:, None]                   # [B, 1, D]
     pos = torch.full((B, 1), cur_len, dtype=torch.int32, device=dev)
     kv_len = torch.full((B,), cur_len + 1, dtype=torch.int32, device=dev)
     slot = min(max(cur_len, 0), cache["k"].shape[2] - 1)

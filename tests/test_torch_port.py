@@ -192,6 +192,9 @@ def test_port_imports_without_jax_or_reference():
         "import repro_torch.serve.front, repro_torch.core.segments\n"
         "import repro_torch.dist.fault_tolerance, repro_torch.dist.chaos\n"
         "import repro_torch.models.moe, repro_torch.dist.collectives\n"
+        "import repro_torch.train.optimizer, repro_torch.train.train_loop\n"
+        "import repro_torch.checkpoint.checkpoint, repro_torch.data.lm_data\n"
+        "import repro_torch.launch.train\n"
         "from repro_torch.configs.registry import get_arch\n"
         "assert get_arch('llama3-8b').make_config().n_layers == 32\n"
         "assert get_arch('moonshot-v1-16b-a3b').make_config().moe.top_k == 6\n"
@@ -216,7 +219,7 @@ def test_port_sources_never_import_jax_or_reference():
     files += sorted((SRC.parent / "examples").glob("torch_*.py"))
     assert len(files) > 20
     for sub in ("core", "kernels", "models", "configs", "launch", "data",
-                "serve", "dist"):
+                "serve", "dist", "train", "checkpoint"):
         assert any(f.parent.name == sub for f in files), sub
     for f in files:
         assert not pattern.search(f.read_text()), f
