@@ -180,6 +180,39 @@ Phases, each reported on its own lines:
    train_batch and MIND at 16384 (cut printed with its reason), 2 steps
    each, finite; (e) `launch/train.py --arch fm --steps 6` with no
    `--device` (the card): finite, 12 bag launches;
+8c. data-parallel training and the GIN — on a one-rank NCCL process
+   group (the one card; NCCL refuses two ranks on one device): (a) the
+   least-squares problem of tests/test_dist.py through
+   `make_sharded_train_step` bit for bit equal to `make_train_step` for
+   DP_LSQ_STEPS steps, and its int8 run converged (loss < 1e-2 after 150
+   steps); FM at full width and train_batch: the dp step's loss,
+   gradients and new parameters within 2e-5 of their largest magnitude
+   of the one-device step's (the bag backward's atomics; the elements
+   whose gradients lie under NEAR_EPS AdamW eps counted and printed:
+   AdamW's first update there follows the gradients' last bits), the dp
+   step from the one-device step's
+   own gradients equal to its update bit for bit, DP_FM_STEPS timed dp
+   steps beside phase 8b (c)'s step (all_reduce calls = (leaves + 1) x
+   steps), then DP_INT8_STEPS int8 steps: on the last (a nonzero
+   residual) every leaf's sum and new residual equal
+   dequantize(quantize(g + r)) and x - deq of the plain functions on the
+   card, and the same check refuses the sum without the residual; the bag
+   kernel's launches in the dp steps counted; (b) gin-tu at full width (5
+   layers, d_hidden 64) on every GNN_SHAPES entry: full_graph_sm's
+   loss_fn and gradients on the card within 2e-5 of their largest
+   magnitude of the port on the CPU from the same weights; molecule (128
+   graphs, the readout), ogb_products at full size (2,449,029 nodes,
+   61,859,140 edges; step p50, edges/s, peak memory, one traced step) and
+   minibatch_lg (3 subgraphs of 1024 seeds at fanout (15, 10) from the
+   full 114.6 M-edge graph) GNN_STEPS AdamW steps each: finite, and on
+   ogb_products' full graph the last loss below the first;
+   the two large graphs are built on the host by
+   forked workers started before phase 2; (c) the halo-exchange loss at
+   full_graph_sm's shape on the group (`partition_for_halo`, one
+   all_gather a layer), forward and backward: within 1e-4 of the dense
+   loss, its accuracy equal, its gradients within 1e-4 of their scale;
+   (d) `launch/train.py --arch gin-tu --shape molecule --steps 6` with no
+   `--device`: finite;
 9. examples — examples/torch_quickstart.py, torch_search_serve.py,
    torch_distributed_search.py (one NCCL rank per card) and
    torch_train_lm.py (300 steps of a ~100M-parameter LM), each a
@@ -192,7 +225,7 @@ count phases 4, 4b and 4c, `serve_launches` phase 4b alone,
 `front_launches` phase 4c alone; flash decode's count phases 6 and 6b,
 and its `moe_shapes` hold its numbers at the two MoE shapes; the segment
 bag's `launches` count phase 8, its `train_launches` phase 8b (c)'s
-steps); the last
+steps, its `dp_launches` phase 8c (a)'s dp steps); the last
 line of
 standard output
 is `{"ok": true, "device": {...}}`.  Without a CUDA device, or without the
@@ -656,8 +689,12 @@ def kernel_count(torch, fn):
 # the smoke run
 # ---------------------------------------------------------------------------
 
+PHASE_ENDS = []                # (phase, wall-clock end), in run order
+
+
 def phase_done(name, t_start):
     say("phase", name=name, seconds=f"{time.perf_counter() - t_start:.1f}")
+    PHASE_ENDS.append((name, time.time()))
     return time.perf_counter()
 
 
@@ -693,31 +730,38 @@ def run(args) -> dict:
                     or "Compiling entry" in line):
                 say("ptxas", source=name, info=json.dumps(line.strip()))
 
-    with contextlib.ExitStack() as stack:      # ends the oracle's workers
-        kernels = search_phases(args, stack, np, torch, t_phase)
-    # the search phases' index, engines and tensors are gone with their
-    # frame; hand their device memory back before the model is built
-    gc.unfreeze()
-    gc.collect()
-    torch.cuda.empty_cache()
-    kernels += lm_phases(args, np, torch)
-    gc.collect()
-    torch.cuda.empty_cache()
-    moe_shapes = moe_phases(args, np, torch)
-    decode = next(k for k in kernels if k["name"] == "flash_decode")
-    decode["launches"] += sum(m["launches"] for m in moe_shapes)
-    decode["max_abs_err"] = max([decode["max_abs_err"]]
-                                + [m["max_abs_err"] for m in moe_shapes])
-    decode["moe_shapes"] = moe_shapes
-    gc.collect()
-    torch.cuda.empty_cache()
-    kernels += recsys_phases(args, np, torch)
-    gc.collect()
-    torch.cuda.empty_cache()
-    bag = next(k for k in kernels if k["name"] == "segment_bag")
-    bag["train_launches"] = train_phases(args, np, torch, card)
-    gc.collect()
-    torch.cuda.empty_cache()
+    with contextlib.ExitStack() as graph_stack:  # ends the graph workers
+        # phase 8c's two large graphs, built on the host meanwhile
+        graphs = start_gnn_graphs(graph_stack, args.seed)
+        with contextlib.ExitStack() as stack:  # ends the oracle's workers
+            kernels = search_phases(args, stack, np, torch, t_phase)
+        # the search phases' index, engines and tensors are gone with their
+        # frame; hand their device memory back before the model is built
+        gc.unfreeze()
+        gc.collect()
+        torch.cuda.empty_cache()
+        kernels += lm_phases(args, np, torch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        moe_shapes = moe_phases(args, np, torch)
+        decode = next(k for k in kernels if k["name"] == "flash_decode")
+        decode["launches"] += sum(m["launches"] for m in moe_shapes)
+        decode["max_abs_err"] = max([decode["max_abs_err"]]
+                                    + [m["max_abs_err"] for m in moe_shapes])
+        decode["moe_shapes"] = moe_shapes
+        gc.collect()
+        torch.cuda.empty_cache()
+        kernels += recsys_phases(args, np, torch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        bag = next(k for k in kernels if k["name"] == "segment_bag")
+        bag["train_launches"], fm_step_ms = train_phases(args, np, torch, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        bag["dp_launches"] = dp_gnn_phases(args, np, torch, card, graphs,
+                                           fm_step_ms)
+        gc.collect()
+        torch.cuda.empty_cache()
     example_phase()
     say("phase", name="total", seconds=f"{time.perf_counter() - t_run:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -3328,7 +3372,7 @@ def held_step(torch, moe, what, got, want, n_routes, update=None):
     return out
 
 
-def train_phases(args, np, torch, card) -> int:
+def train_phases(args, np, torch, card) -> tuple:
     """Phase 8b: training.  (a) one loss_fn + AdamW step of the llama3-8b
     and granite-moe-1b-a400m smoke configs (float32, remat) on the card
     against the same step of the port on the CPU, and remat on against off
@@ -3344,7 +3388,7 @@ def train_phases(args, np, torch, card) -> int:
     BST at train_batch and MIND cut, TRAIN_OTHER_STEPS steps each, finite;
     (e) `launch/train.py --arch fm --steps 6` on its default device (the
     card), the bag kernel launched twice a step.  Returns the segment-bag
-    launches of (c)'s steps."""
+    launches of (c)'s steps and (c)'s step p50 in ms."""
     import dataclasses
     from repro_torch.configs.registry import (LM_SHAPES, RECSYS_SHAPES,
                                               get_arch)
@@ -3490,6 +3534,7 @@ def train_phases(args, np, torch, card) -> int:
         losses.append((float(m["loss"]), float(m["grad_norm"])))
         secs.append(time.perf_counter() - t0)
     train_launches = ops.segment_bag_cuda.launches
+    fm_step_ms = f"{percentile(secs, 50) * 1e3:.2f}"
     finite = all(math.isfinite(x) for pair in losses for x in pair)
     say("train_fm", batch=B, table=tuple(model.table.shape),
         loss_kernel=f"{float(loss_k):.7f}", loss_plain=f"{float(loss_p):.7f}",
@@ -3500,7 +3545,7 @@ def train_phases(args, np, torch, card) -> int:
         finite=finite, segment_bag_launches=train_launches,
         steps_per_s=f"{len(secs) / sum(secs):.2f}",
         examples_per_s=f"{B * len(secs) / sum(secs):.1f}",
-        step_p50_ms=f"{percentile(secs, 50) * 1e3:.2f}")
+        step_p50_ms=fm_step_ms)
     check(loss_err <= TRAIN_TOL, f"FM loss through the kernel differs from "
           f"the plain bag's by {loss_err}")
     check(max(grad_errs.values()) <= TRAIN_TOL, f"FM gradients through the "
@@ -3557,7 +3602,500 @@ def train_phases(args, np, torch, card) -> int:
           f"{launcher_launches} bag launches (want 12)")
     phase_done("train_launcher", t_phase)
     phase_done("train", t_start)
-    return train_launches
+    return train_launches, fm_step_ms
+
+
+# ---------------------------------------------------------------------------
+# data-parallel training and the GIN (phase 8c)
+# ---------------------------------------------------------------------------
+
+GNN_STEPS = 3                  # AdamW steps of each full-width GIN shape
+GNN_SAMPLED = ("minibatch_lg",)          # shapes trained on sampled subgraphs
+GNN_FORKED = ("ogb_products", "minibatch_lg")  # graphs built in the workers
+HALO_TOL = 1e-4                # tests/test_dist.py's halo-vs-dense limit
+DP_FM_STEPS = 3                # timed float32 dp steps of FM
+DP_INT8_STEPS = 2              # int8 steps: the second has a residual
+DP_LSQ_STEPS = 3               # bit-equal dp steps of the least squares
+DP_LSQ_CONVERGE = 150          # tests/test_dist.py's int8 convergence run
+DP_LSQ_CFG = dict(lr=5e-2, weight_decay=0.0, warmup_steps=0)
+NEAR_EPS = 100                 # gradients under 100 AdamW eps: see dp_phase
+
+
+def _gnn_graph_job(shape, seed, out_dir) -> dict:
+    """A forked worker's host build of GNN_SHAPES[shape]'s graph at full
+    size (numpy only): ogb_products' full-graph batch, or minibatch_lg's
+    GNN_STEPS subgraphs of `batch_nodes` seeds at its fanout.  Each array
+    goes to an .npy file under `out_dir`; returns their paths per batch,
+    the graph's size, its least in-degree and the build's seconds."""
+    import numpy as np
+    from repro_torch.configs.registry import GNN_SHAPES
+    from repro_torch.data import graph_data
+    t0 = time.perf_counter()
+    s = GNN_SHAPES[shape]
+    g = graph_data.generate_graph(s["n_nodes"], s["n_edges"], s["d_feat"],
+                                  s["n_classes"], seed=seed)
+    if shape in GNN_SAMPLED:
+        rng = np.random.default_rng(seed)
+        batches = [graph_data.sample_subgraph(
+            g, rng.integers(0, g.n_nodes, s["batch_nodes"]), s["fanout"], rng)
+            for _ in range(GNN_STEPS)]
+    else:
+        batches = [graph_data.full_graph_batch(g, seed=seed)]
+    files = []
+    for i, b in enumerate(batches):
+        files.append({})
+        for k, v in b.items():
+            path = os.path.join(out_dir, f"{shape}-{i}-{k}.npy")
+            np.save(path, v)
+            files[-1][k] = path
+    return {"files": files, "n_nodes": g.n_nodes, "n_edges": g.n_edges,
+            "min_in_degree": int(np.diff(g.adj_offsets).min()),
+            "host_s": time.perf_counter() - t0, "end_wall": time.time()}
+
+
+def start_gnn_graphs(stack, seed) -> dict:
+    """Phase 8c's two large graphs (GNN_FORKED), each built by a forked
+    worker (forked before the search phases allocate; numpy only) while
+    the earlier phases run.  Returns {shape: future}; the workers and
+    their files end with `stack`."""
+    import tempfile
+    out_dir = stack.enter_context(tempfile.TemporaryDirectory(
+        prefix="chip_smoke_gnn_"))
+    pool = stack.enter_context(ProcessPoolExecutor(
+        max_workers=len(GNN_FORKED),
+        mp_context=multiprocessing.get_context("fork")))
+    return {shape: pool.submit(_gnn_graph_job, shape, seed, out_dir)
+            for shape in GNN_FORKED}
+
+
+def _load_batches(np, torch, job) -> list:
+    """The worker's batches, on the card."""
+    return [{k: torch.from_numpy(np.load(p)).cuda() for k, p in f.items()}
+            for f in job["files"]]
+
+
+class _Count:
+    """Counts calls of a function it wraps."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, 0
+
+    def __call__(self, *a, **kw):
+        self.calls += 1
+        return self.fn(*a, **kw)
+
+
+def _lsq(np, torch, rows, seed):
+    """tests/test_dist.py's least-squares problem from numpy seeds, on the
+    card: params (w [4, 1], b [1]; zeros) and the batch (x, y = x w)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(rows, 4)).astype(np.float32)
+    w_true = rng.normal(size=(4, 1)).astype(np.float32)
+    params = {"w": torch.zeros((4, 1), device="cuda"),
+              "b": torch.zeros((1,), device="cuda")}
+    batch = {"x": torch.from_numpy(x).cuda(),
+             "y": torch.from_numpy(x @ w_true).cuda()}
+    return params, batch
+
+
+def _lsq_loss(torch):
+    def loss_fn(params, batch):
+        pred = batch["x"] @ params["w"] + params["b"]
+        return torch.mean((pred - batch["y"]) ** 2), {}
+    return loss_fn
+
+
+def dp_phase(args, np, torch, mesh, fm_step_ms) -> int:
+    """Phase 8c (a): the data-parallel step on the one-rank NCCL group of
+    `mesh`.  Returns the bag kernel's launches in the dp steps."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import RECSYS_SHAPES, get_arch
+    from repro_torch.data.recsys_data import ClickLog
+    from repro_torch.dist import collectives
+    from repro_torch.kernels import ops
+    from repro_torch.models import recsys as rec
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_loop as tl
+
+    t_phase = time.perf_counter()
+    # -- the least squares: no atomics, bit for bit end to end --------------
+    loss_fn = _lsq_loss(torch)
+    ocfg = opt.OptimizerConfig(**DP_LSQ_CFG)
+    pa, batch = _lsq(np, torch, 64, args.seed)
+    pb = {k: v.clone() for k, v in pa.items()}
+    sa, sb = opt.init_state(ocfg, pa), opt.init_state(ocfg, pb)
+    one = tl.make_train_step(loss_fn, ocfg)
+    dp = tl.make_sharded_train_step(loss_fn, ocfg, mesh)
+    res = tl.init_residual(pb)
+    for i in range(DP_LSQ_STEPS):
+        pa, sa, ma = one(pa, sa, batch)
+        pb, sb, res, mb = dp(pb, sb, res, batch)
+        check(torch.equal(ma["loss"], mb["loss"])
+              and all(torch.equal(pa[k], pb[k]) for k in pa),
+              f"least squares step {i}: the dp step is not the one-device "
+              f"step bit for bit")
+    pc, _ = _lsq(np, torch, 64, args.seed)
+    q = tl.make_sharded_train_step(loss_fn, ocfg, mesh, compression="int8")
+    sc, rc = opt.init_state(ocfg, pc), tl.init_residual(pc)
+    for _ in range(DP_LSQ_CONVERGE):
+        pc, sc, rc, mc = q(pc, sc, rc, batch)
+    lsq_final = float(mc["loss"])
+    say("dp_lsq", bit_equal_steps=DP_LSQ_STEPS, int8_steps=DP_LSQ_CONVERGE,
+        int8_final_loss=f"{lsq_final:.3g}")
+    check(lsq_final < 1e-2, f"int8 dp least squares did not converge: "
+          f"{lsq_final} after {DP_LSQ_CONVERGE} steps")
+    t_phase = phase_done("dp_lsq", t_phase)
+
+    # -- FM at full width: one-device vs dp, and the same gradients ----------
+    cfg = get_arch("fm").make_config()
+    B = RECSYS_SHAPES["train_batch"]["batch"]
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    model = rec.init_params(cfg, gen, "cuda")
+    init = {k: p.detach().clone() for k, p in model.named_parameters()}
+    log = ClickLog(cfg.field_vocabs, item_vocab=cfg.item_vocab,
+                   seq_len=cfg.seq_len, seed=args.seed)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in log.ctr_batch(B).items()}
+    ocfg = opt.OptimizerConfig(lr=1e-3, warmup_steps=1, decay_steps=10)
+    real_vg = tl.value_and_grad
+    seen = []
+
+    def recording_vg(loss_fn, params, b):
+        out = real_vg(loss_fn, params, b)
+        seen.append((out[0].clone(), {k: g.clone() for k, g in out[2].items()}))
+        return out
+
+    def fm_state():
+        tl.load_params(model, init)
+        return opt.init_state(ocfg, tl.param_dict(model))
+
+    with replaced(tl, "value_and_grad", recording_vg):
+        tl.make_train_step(rec.loss_fn, ocfg)(model, fm_state(), batch)
+        one = {k: p.detach().clone() for k, p in model.named_parameters()}
+        ops.segment_bag_cuda.launches = 0
+        dp_step = tl.make_sharded_train_step(rec.loss_fn, ocfg, mesh)
+        dp_step(model, fm_state(), tl.init_residual(model), batch)
+        dp_launches = ops.segment_bag_cuda.launches
+    got = {k: p.detach().clone() for k, p in model.named_parameters()}
+    (l1, g1), (l2, g2) = seen
+    # new parameters: held whole; the elements whose gradient lies under
+    # NEAR_EPS * eps are counted and printed, since there AdamW's first
+    # update, ~lr * g / (|g| + eps), moves by what the gradient's last bits
+    # say (d/dg is 1 / (4 eps) at |g| = eps), and the atomics set those bits
+    near = NEAR_EPS * ocfg.eps
+    errs = {"loss": rel_err(torch, l2, l1),
+            "grads": max(rel_err(torch, g2[k], g1[k]) for k in g1),
+            "params": 0.0}
+    apart = {}
+    for k in one:
+        d = (got[k] - one[k]).abs()
+        far = (g1[k].abs() >= near) & (g2[k].abs() >= near)
+        scale = max(float(one[k].abs().max()), 1e-30)
+        whole = float(d.max()) / scale
+        errs["params"] = max(errs["params"], whole)
+        nonzero = (g1[k] != 0) | (g2[k] != 0)
+        apart[k] = {"rel": float(f"{whole:.3g}"),
+                    "near_eps": int((~far & nonzero).sum()),
+                    "far_rel": float(f"{float(d[far].max()) / scale:.3g}"
+                                     if bool(far.any()) else 0.0)}
+    # the one-device step's gradients through the dp step: its update must
+    # equal the one-device step's bit for bit
+    with replaced(tl, "value_and_grad",
+                  lambda *_: (l1, {}, {k: g.clone() for k, g in g1.items()})):
+        tl.make_sharded_train_step(rec.loss_fn, ocfg, mesh)(
+            model, fm_state(), tl.init_residual(model), batch)
+    same_update = all(torch.equal(p, one[k])
+                      for k, p in model.named_parameters())
+    del seen, g1, g2, one, got
+    # timed float32 dp steps, all_reduce calls counted
+    reduce = _Count(dist.all_reduce)
+    state, res, secs = fm_state(), tl.init_residual(model), []
+    ops.segment_bag_cuda.launches = 0
+    with replaced(dist, "all_reduce", reduce):
+        for _ in range(DP_FM_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model, state, res, m = dp_step(model, state, res, batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+    dp_launches += ops.segment_bag_cuda.launches
+    n_leaves = len(init)
+    say("dp_fm", batch=B, group_ranks=dist.get_world_size(mesh.dp_group),
+        loss_rel_err=f"{errs['loss']:.3g}",
+        grad_rel_err=f"{errs['grads']:.3g}",
+        param_rel_err=f"{errs['params']:.3g}", params=json.dumps(apart),
+        same_grads_update_bit_equal=same_update,
+        all_reduce_calls=reduce.calls,
+        all_reduce_want=f"({n_leaves} leaves + 1 loss) x {DP_FM_STEPS}",
+        step_ms=json.dumps([round(s * 1e3, 2) for s in secs]),
+        step_p50_ms=f"{percentile(secs, 50) * 1e3:.2f}",
+        one_device_step_p50_ms=fm_step_ms)
+    check(max(errs.values()) <= TRAIN_TOL, f"FM's dp step differs from the "
+          f"one-device step: {errs} (limit {TRAIN_TOL})")
+    check(same_update, "FM's dp step from the one-device step's gradients "
+          "is not the one-device update bit for bit")
+    check(reduce.calls == (n_leaves + 1) * DP_FM_STEPS,
+          f"{reduce.calls} all_reduce calls in {DP_FM_STEPS} dp steps, want "
+          f"{(n_leaves + 1) * DP_FM_STEPS}")
+    t_phase = phase_done("dp_fm", t_phase)
+
+    # -- int8 with error feedback: a step with a nonzero residual ------------
+    calls = []
+    real_cp = tl.compressed_psum_with_feedback
+
+    def recording_cp(grads, residual, group):
+        summed, new = real_cp(grads, residual, group)
+        calls.append(({k: g.clone() for k, g in grads.items()},
+                      {k: r.clone() for k, r in residual.items()},
+                      {k: g.clone() for k, g in summed.items()}, new))
+        return summed, new
+
+    reduce = _Count(dist.all_reduce)
+    q = tl.make_sharded_train_step(rec.loss_fn, ocfg, mesh, compression="int8")
+    state, res = fm_state(), tl.init_residual(model)
+    ops.segment_bag_cuda.launches = 0
+    with replaced(tl, "compressed_psum_with_feedback", recording_cp), \
+            replaced(dist, "all_reduce", reduce):
+        for _ in range(DP_INT8_STEPS):
+            model, state, res, m = q(model, state, res, batch)
+    dp_launches += ops.segment_bag_cuda.launches
+    g, r, summed, new = calls[-1]
+    exact, control, res_norm = True, False, 0.0
+    for k in g:
+        x = g[k].float() + r[k]
+        qk, scale = collectives.quantize_int8(x)
+        deq = collectives.dequantize_int8(qk, scale)
+        exact &= torch.equal(summed[k], deq) and torch.equal(new[k], x - deq)
+        q0, s0 = collectives.quantize_int8(g[k].float())
+        control |= not torch.equal(summed[k],
+                                   collectives.dequantize_int8(q0, s0))
+        res_norm = max(res_norm, float(r[k].abs().max()))
+    say("dp_int8", steps=DP_INT8_STEPS, residual_in_max=f"{res_norm:.3g}",
+        sum_and_residual_equal_plain=exact, residual_dropped_refused=control,
+        all_reduce_calls=reduce.calls, loss=f"{float(m['loss']):.6f}")
+    check(res_norm > 0, "the int8 step after the first has a zero residual")
+    check(exact, "the int8 dp step's sums or residuals differ from "
+          "dequantize(quantize(g + r)) and x - deq on the card")
+    check(control, "the int8 check accepts a sum that dropped the residual")
+    check(reduce.calls == (n_leaves + 1) * DP_INT8_STEPS,
+          f"{reduce.calls} all_reduce calls in {DP_INT8_STEPS} int8 steps")
+    check(dp_launches == 2 * (1 + DP_FM_STEPS + DP_INT8_STEPS),
+          f"the dp steps launched the bag kernel {dp_launches} times")
+    del model, state, res, batch, init, calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("dp_int8", t_phase)
+    return dp_launches
+
+
+def _gnn_cfg(shape):
+    import dataclasses
+
+    from repro_torch.configs.registry import GNN_SHAPES, get_arch
+    s = GNN_SHAPES[shape]
+    return dataclasses.replace(get_arch("gin-tu").make_config(),
+                               d_feat=s["d_feat"], n_classes=s["n_classes"],
+                               graph_readout=s["kind"] == "train_graphs")
+
+
+def gnn_train(np, torch, card, shape, batches, loss_fn, seed, full=False,
+              edges=None) -> dict:
+    """GNN_STEPS AdamW steps of gin-tu at full width on `batches` (one
+    batch a step, cycled), from weights of a CPU generator seeded `seed`:
+    losses finite; step times and peak memory; with `full` (a full graph)
+    the last loss below the first and one more step under
+    torch.profiler."""
+    from repro_torch.models import gnn
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_loop as tl
+    cfg = _gnn_cfg(shape)
+    model = gnn.init_params(cfg, torch.Generator().manual_seed(seed),
+                            "cpu").cuda()
+    ocfg = opt.OptimizerConfig(lr=1e-3, warmup_steps=1, decay_steps=10)
+    step = tl.make_train_step(loss_fn, ocfg)
+    state = opt.init_state(ocfg, tl.param_dict(model))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hist, secs = [], []
+    for i in range(GNN_STEPS):
+        t0 = time.perf_counter()
+        model, state, m = step(model, state, batches[i % len(batches)])
+        hist.append({k: float(m[k]) for k in ("loss", "acc", "grad_norm")})
+        secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    out = {"card": json.dumps(card), "steps": GNN_STEPS,
+           "losses": json.dumps([round(h["loss"], 4) for h in hist]),
+           "acc": json.dumps([round(h["acc"], 4) for h in hist]),
+           "step_ms": json.dumps([round(s * 1e3, 2) for s in secs]),
+           "step_p50_ms": f"{percentile(secs, 50) * 1e3:.2f}",
+           "peak_gb": f"{peak / 1e9:.2f}"}
+    if edges is not None:
+        out["edges_per_s"] = f"{edges / percentile(secs, 50):.4g}"
+    if full:
+        out.update({f"trace_{k}": v for k, v in device_trace(
+            torch, lambda: step(model, state, batches[0])).items()})
+    finite = all(math.isfinite(h[k]) for h in hist
+                 for k in ("loss", "grad_norm"))
+    say("gnn_train", shape=shape, **out)
+    check(finite, f"gin-tu {shape}: non-finite loss or grad norm: {hist}")
+    check(not full or hist[-1]["loss"] < hist[0]["loss"],
+          f"gin-tu {shape}: the last loss {hist[-1]['loss']} is not below "
+          f"the first {hist[0]['loss']}")
+    return out
+
+
+def gnn_phase(args, np, torch, card, mesh, graphs) -> None:
+    """Phase 8c (b)-(d): gin-tu at full width on every GNN_SHAPES entry,
+    the halo-exchange loss on the one-rank group, the launcher."""
+    from repro_torch.configs.registry import GNN_SHAPES
+    from repro_torch.data import graph_data
+    from repro_torch.dist import sharding
+    from repro_torch.models import gnn
+    from repro_torch.train import train_loop as tl
+
+    t_phase = time.perf_counter()
+    # -- full_graph_sm: card vs CPU, then the halo loss ----------------------
+    s = GNN_SHAPES["full_graph_sm"]
+    cfg = _gnn_cfg("full_graph_sm")
+    g = graph_data.generate_graph(s["n_nodes"], s["n_edges"], s["d_feat"],
+                                  s["n_classes"], seed=args.seed)
+    cpu_model = gnn.init_params(cfg, torch.Generator().manual_seed(args.seed),
+                                "cpu")
+    card_model = gnn.GIN(cfg, "cuda")
+    tl.load_params(card_model, dict(cpu_model.named_parameters()))
+    full = graph_data.full_graph_batch(g, seed=args.seed)
+    vg = {}
+    for name, model, dev in (("cpu", cpu_model, "cpu"),
+                             ("card", card_model, "cuda")):
+        b = {k: torch.from_numpy(v).to(dev) for k, v in full.items()}
+        loss, m, grads = tl.value_and_grad(gnn.loss_fn, model, b)
+        vg[name] = (loss.cpu(), {k: v.cpu() for k, v in grads.items()})
+    loss_err = rel_err(torch, vg["card"][0], vg["cpu"][0])
+    grad_errs = {k: rel_err(torch, vg["card"][1][k], vg["cpu"][1][k])
+                 for k in vg["cpu"][1]}
+    worst = max(grad_errs, key=grad_errs.get)
+    say("gnn_card_vs_cpu", shape="full_graph_sm", nodes=g.n_nodes,
+        edges=g.n_edges, loss=f"{float(vg['card'][0]):.6f}",
+        loss_cpu=f"{float(vg['cpu'][0]):.6f}", loss_rel_err=f"{loss_err:.3g}",
+        grad_rel_err_max=f"{grad_errs[worst]:.3g}", worst=worst)
+    check(max([loss_err] + list(grad_errs.values())) <= TRAIN_TOL,
+          f"gin-tu full_graph_sm on the card differs from the CPU: loss "
+          f"{loss_err}, gradients {grad_errs} (limit {TRAIN_TOL})")
+    # (c) the halo-exchange loss on the one-rank group, forward and
+    # backward, against the dense loss over every node
+    part = graph_data.partition_for_halo(g, mesh.dp_size)
+    keys = ("nodes", "src", "dst", "edge_mask", "labels", "label_mask",
+            "send_idx")
+    shard = {k: sharding.dp_placement(mesh, part[k].shape).block(
+        torch.from_numpy(part[k])) for k in keys}
+    check(shard["nodes"].device == mesh.device,
+          f"the halo shard is on {shard['nodes'].device}, not {mesh.device}")
+    dense = {k: torch.from_numpy(v).cuda() for k, v in
+             graph_data.full_graph_batch(g, train_frac=1.0,
+                                         seed=args.seed).items()}
+    gather = _Count(torch.distributed.all_gather)
+    with replaced(torch.distributed, "all_gather", gather):
+        hl, hm, hg = tl.value_and_grad(
+            lambda mdl, b: gnn.halo_loss_fn(mdl, b, mesh.dp_group),
+            card_model, shard)
+    dl, dm, dg = tl.value_and_grad(gnn.loss_fn, card_model, dense)
+    halo_err = abs(float(hl) - float(dl))
+    halo_grad = max(rel_err(torch, hg[k], dg[k]) for k in dg)
+    say("gnn_halo", shape="full_graph_sm", shards=mesh.dp_size,
+        boundary=part["boundary"], cut_fraction=part["cut_fraction"],
+        all_gathers=gather.calls, loss=f"{float(hl):.6f}",
+        loss_dense=f"{float(dl):.6f}", loss_abs_err=f"{halo_err:.3g}",
+        acc=float(hm["acc"]), acc_dense=float(dm["acc"]),
+        grad_rel_err=f"{halo_grad:.3g}")
+    check(halo_err <= HALO_TOL and float(hm["acc"]) == float(dm["acc"]),
+          f"halo loss {float(hl)} / acc {float(hm['acc'])} against the dense "
+          f"{float(dl)} / {float(dm['acc'])} (limit {HALO_TOL})")
+    check(halo_grad <= HALO_TOL, f"halo gradients differ from the dense "
+          f"ones by {halo_grad} of their scale (limit {HALO_TOL})")
+    check(gather.calls == cfg.n_layers, f"{gather.calls} all_gathers, want "
+          f"one a layer ({cfg.n_layers})")
+    del vg, card_model, cpu_model, dense, shard, hg, dg
+    t_phase = phase_done("gnn_full_graph_sm", t_phase)
+
+    # -- molecule: the readout ------------------------------------------------
+    s = GNN_SHAPES["molecule"]
+    mb = graph_data.molecule_batch(s["batch"], s["n_nodes"], s["n_edges"],
+                                   s["d_feat"], s["n_classes"], seed=args.seed)
+    n_graphs = mb.pop("n_graphs")
+    mb = {k: torch.from_numpy(v).cuda() for k, v in mb.items()}
+    gnn_train(np, torch, card, "molecule", [mb],
+              lambda mdl, b: gnn.loss_fn(mdl, dict(b, n_graphs=n_graphs)),
+              args.seed)
+    t_phase = phase_done("gnn_molecule", t_phase)
+
+    # -- the two large graphs, from the forked workers ------------------------
+    for shape in GNN_FORKED:
+        t0 = time.perf_counter()
+        job = graphs[shape].result()
+        waited = time.perf_counter() - t0
+        batches = _load_batches(np, torch, job)
+        s = GNN_SHAPES[shape]
+        # the phase the worker's build ended in (its host cores are busy
+        # until then: the timed search windows start at main_path)
+        ended_in = next((p for p, t in PHASE_ENDS if t >= job["end_wall"]),
+                        "dp_gnn")
+        say("gnn_graph", shape=shape, nodes=job["n_nodes"],
+            edges=job["n_edges"], min_in_degree=job["min_in_degree"],
+            host_build_s=f"{job['host_s']:.1f}", build_ended_in=ended_in,
+            waited_s=f"{waited:.1f}",
+            load_s=f"{time.perf_counter() - t0 - waited:.1f}",
+            batch_nodes=tuple(batches[0]["nodes"].shape),
+            batch_edges=int(batches[0]["src"].shape[0]))
+        if shape in GNN_SAMPLED:
+            check(job["min_in_degree"] >= max(s["fanout"]),
+                  f"{shape}: a node of in-degree {job['min_in_degree']} "
+                  f"under the fanout {s['fanout']}")
+        gnn_train(np, torch, card, shape, batches, gnn.loss_fn, args.seed,
+                  full=shape not in GNN_SAMPLED,
+                  edges=None if shape in GNN_SAMPLED else job["n_edges"])
+        del batches
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_phase = phase_done(f"gnn_{shape}", t_phase)
+
+    # -- (d) the launcher on the card by default -------------------------------
+    from repro_torch.launch import train as train_launcher
+    hist = train_launcher.main(["--arch", "gin-tu", "--shape", "molecule",
+                                "--steps", "6"])
+    say("gnn_launcher", arch="gin-tu", shape="molecule", steps=6,
+        history=json.dumps(hist))
+    check(math.isfinite(hist[-1]["loss"]), f"launch/train.py --arch gin-tu "
+          f"--shape molecule on the card: {hist}")
+    phase_done("gnn_launcher", t_phase)
+
+
+def dp_gnn_phases(args, np, torch, card, graphs, fm_step_ms) -> int:
+    """Phase 8c: data-parallel training and the GIN on a one-rank NCCL
+    process group.  Returns the bag kernel's launches in the dp steps."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t_start = time.perf_counter()
+    store = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        dist.init_process_group(
+            "nccl", init_method="file://" + os.path.join(store, "store"),
+            world_size=1, rank=0)
+    except Exception as e:          # the run fails: the group is the path
+        raise SmokeFailure(f"no NCCL process group: {e!r}") from e
+    try:
+        mesh = make_host_mesh(data=1, model=1)
+        check(mesh.distributed and mesh.device.type == "cuda",
+              f"the dp mesh is not on a process group on the card: {mesh}")
+        dp_launches = dp_phase(args, np, torch, mesh, fm_step_ms)
+        gnn_phase(args, np, torch, card, mesh, graphs)
+    finally:
+        dist.destroy_process_group()
+    phase_done("dp_gnn", t_start)
+    return dp_launches
 
 
 # ---------------------------------------------------------------------------

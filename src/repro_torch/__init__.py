@@ -9,8 +9,12 @@ the search path and its serve tier (`serve`, over `launch.mesh`), the LM
 serving path and the recsys serving path (`models`, `launch`; the dense
 LMs, recsys models and `veretennikov` of `configs`) launch the
 hand-written CUDA kernels of `repro_torch.kernels` (sources in
-`kernels/csrc/`).  Single-device training (`train`, `checkpoint`,
-`dist.fault_tolerance.TrainSupervisor`, `launch.train`) trains the LMs and
-recsys models; FM's bag sums take their gradient through the bag kernel.
-Importing the package sets no global state.
+`kernels/csrc/`).  Training (`train`, `checkpoint`,
+`dist.fault_tolerance.TrainSupervisor`, `launch.train`) trains the LMs,
+the recsys models and the GIN (`models.gnn`, `data.graph_data`) on one
+device, and data-parallel over a process group
+(`train.train_loop.make_sharded_train_step`, float32 or int8 gradient
+all-reduce: `dist.collectives`; elastic restore: `dist.sharding`); FM's
+bag sums take their gradient through the bag kernel.  Importing the
+package sets no global state.
 """

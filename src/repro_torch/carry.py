@@ -17,7 +17,9 @@ for training, a `param_dtype` asked for (an MoE router to float32, as the
 reference stores it);
 `recsys_params_from_reference(params, cfg, device)` returns the port's
 `RecSysModel` for a reference recsys parameter dict (lists of layer dicts
-become `attn.{i}.wq`-style names).
+become `attn.{i}.wq`-style names), and `gnn_params_from_reference(params,
+cfg, device)` the port's `GIN` for a reference GIN parameter dict
+(`layers.{i}.w1`-style names).
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from repro_torch.core.lexicon import Lexicon, LexiconConfig
 from repro_torch.core.multi_key_index import MultiKeyIndex
 from repro_torch.core.postings import CSR, DenseCSR, PackedPostings
 from repro_torch.core.stop_phrase_index import StopPhraseIndex
+from repro_torch.models.gnn import GIN, GINConfig
 from repro_torch.models.recsys import RecSysConfig, RecSysModel
 from repro_torch.models.transformer import Transformer, TransformerConfig
 
@@ -129,6 +132,24 @@ def _flat_names(params: dict, prefix: str = "") -> dict:
 
 
 @torch.no_grad()
+def _fill_named(model: torch.nn.Module, params: dict, what: str):
+    """Copy the reference's nested dict `params` into `model`'s parameters
+    of the same (flattened) names, each cast to its parameter's dtype.
+    Names and shapes must match the model's."""
+    flat = _flat_names(params)
+    want = dict(model.named_parameters())
+    if set(flat) != set(want):
+        raise ValueError(f"parameters {sorted(flat)}, want {sorted(want)} "
+                         f"({what})")
+    for name, dst in want.items():
+        src = torch.from_numpy(np.array(flat[name], dtype=np.float32))
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"{name}: shape {tuple(src.shape)}, want "
+                             f"{tuple(dst.shape)}")
+        dst.copy_(src.to(dst.dtype))
+    return model
+
+
 def recsys_params_from_reference(params: dict, cfg: RecSysConfig,
                                  device=None) -> RecSysModel:
     """The port's model holding the reference recsys parameters `params`
@@ -136,16 +157,14 @@ def recsys_params_from_reference(params: dict, cfg: RecSysConfig,
     `cfg.param_dtype`, on `device` (the card unless the caller asks for
     the CPU).  Names and shapes must match the model's; reads arrays
     only."""
-    model = RecSysModel(cfg, device)
-    flat = _flat_names(params)
-    want = dict(model.named_parameters())
-    if set(flat) != set(want):
-        raise ValueError(f"parameters {sorted(flat)}, want {sorted(want)} "
-                         f"(a {cfg.model} model)")
-    for name, dst in want.items():
-        src = torch.from_numpy(np.array(flat[name], dtype=np.float32))
-        if tuple(src.shape) != tuple(dst.shape):
-            raise ValueError(f"{name}: shape {tuple(src.shape)}, want "
-                             f"{tuple(dst.shape)}")
-        dst.copy_(src.to(cfg.param_dtype))
-    return model
+    return _fill_named(RecSysModel(cfg, device), params, f"a {cfg.model} model")
+
+
+def gnn_params_from_reference(params: dict, cfg: GINConfig,
+                              device=None) -> GIN:
+    """The port's GIN holding the reference GIN parameters `params` (numpy
+    arrays; `layers` a list of dicts {eps, w1, b1, w2, b2}, `head_w`,
+    `head_b`), each cast to its parameter's dtype (`eps` float32, the
+    rest `cfg.param_dtype`), on `device` (the card unless the caller asks
+    for the CPU).  Reads arrays only."""
+    return _fill_named(GIN(cfg, device), params, f"a {cfg.n_layers}-layer GIN")

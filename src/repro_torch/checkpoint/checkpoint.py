@@ -13,12 +13,14 @@ and the optimizer state).  The on-disk layout is the reference's:
     keys and list indices, joined by "/"), `idx`, `shape` and `dtype`;
     dict keys are visited in sorted order, as the reference's tree
     flattening visits them;
-  * leaves are stored whole on the host, so a checkpoint restores onto
-    any device.  numpy has no bfloat16: a bf16 tensor is stored as its
-    uint16 bits, with "bfloat16" as its manifest dtype.
-
-Restoring onto another mesh (the reference's `shardings` argument) waits
-for the data-parallel slice (ROADMAP.md, item 10b).
+  * leaves are stored whole on the host, so a checkpoint written under
+    any layout restores onto any device and any other layout (elastic
+    resume): `shardings`, a tree of `dist.sharding.Placement`s (or None
+    per leaf) shaped as `like`, restores each placed leaf as its rank's
+    block on the placement's device, the port's counterpart of the
+    reference's `device_put` with a sharding tree.  numpy has no
+    bfloat16: a bf16 tensor is stored as its uint16 bits, with
+    "bfloat16" as its manifest dtype.
 """
 from __future__ import annotations
 
@@ -48,6 +50,25 @@ def _flatten(tree, prefix: str = "") -> list:
         raise TypeError(f"checkpoint leaf {prefix[:-1]!r} is a "
                         f"{type(tree).__name__}, not a tensor")
     return [(prefix[:-1], tree)]
+
+
+def _placements(shardings, like, prefix: str = "") -> dict:
+    """{key: Placement} for the leaves of `like` that `shardings` places
+    (a tree of the same structure whose leaves are Placements or None;
+    None for a whole subtree places none of it)."""
+    if shardings is None:
+        return {}
+    if isinstance(like, dict):
+        out = {}
+        for k in like:
+            out.update(_placements(shardings[k], like[k], f"{prefix}{k}/"))
+        return out
+    if isinstance(like, (list, tuple)):
+        out = {}
+        for i, v in enumerate(like):
+            out.update(_placements(shardings[i], v, f"{prefix}{i}/"))
+        return out
+    return {prefix[:-1]: shardings}
 
 
 def _unflatten(like, leaves: dict, prefix: str = ""):
@@ -93,13 +114,16 @@ def save_pytree(path: str, tree, step: int | None = None) -> None:
     os.rename(tmp, path)
 
 
-def restore_pytree(path: str, like, device=None):
+def restore_pytree(path: str, like, device=None, shardings=None):
     """The checkpoint at `path` in the structure of `like`: each leaf a new
     tensor of the stored dtype and shape, on `device`, or where `device`
-    is None on the device of `like`'s leaf under the same key."""
+    is None on the device of `like`'s leaf under the same key.  A leaf
+    that `shardings` places (see the module docstring) is restored as its
+    placement's block, on the placement's device."""
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     by_key = {entry["key"]: entry for entry in manifest["leaves"]}
+    placed = _placements(shardings, like)
     leaves = {}
     with np.load(os.path.join(path, "arrays.npz")) as data:
         for key, leaf in _flatten(like):
@@ -107,7 +131,10 @@ def restore_pytree(path: str, like, device=None):
                 raise KeyError(f"{path}: no leaf {key!r} in the checkpoint")
             entry = by_key[key]
             t = _from_numpy(data[f"a{entry['idx']}"], entry["dtype"])
-            leaves[key] = t.to(leaf.device if device is None else device)
+            if placed.get(key) is not None:
+                leaves[key] = placed[key].block(t)
+            else:
+                leaves[key] = t.to(leaf.device if device is None else device)
     return _unflatten(like, leaves)
 
 
@@ -140,9 +167,9 @@ class CheckpointManager:
             shutil.rmtree(p, ignore_errors=True)
         return path
 
-    def restore_latest(self, like, device=None):
+    def restore_latest(self, like, device=None, shardings=None):
         step = self.latest_step()
         if step is None:
             return None, None
         path = os.path.join(self.dir, f"step_{step:08d}")
-        return step, restore_pytree(path, like, device)
+        return step, restore_pytree(path, like, device, shardings)

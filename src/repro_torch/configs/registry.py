@@ -1,11 +1,9 @@
 """Architecture registry of the port: --arch <id> resolves here.
 
-A copy of src/repro/configs/registry.py for the architectures the port has
-(the dense and MoE decoder LMs, the four recsys models and the search
-system `veretennikov`, whose serve tier `launch/serve.py --mode search`
-drives).  The one other architecture of the reference, the GNN `gin-tu`,
-raises in `get_arch`, naming the ROADMAP.md item that ports it; it gets no
-stand-in.
+A copy of src/repro/configs/registry.py: every architecture of the
+reference (the dense and MoE decoder LMs, the GNN `gin-tu`, the four
+recsys models and the search system `veretennikov`, whose serve tier
+`launch/serve.py --mode search` drives) and the shared shape sets.
 """
 from __future__ import annotations
 
@@ -27,16 +25,12 @@ _MODULES = {
     "llama3-8b": "repro_torch.configs.llama3_8b",
     "granite-moe-1b-a400m": "repro_torch.configs.granite_moe_1b_a400m",
     "moonshot-v1-16b-a3b": "repro_torch.configs.moonshot_v1_16b_a3b",
+    "gin-tu": "repro_torch.configs.gin_tu",
     "fm": "repro_torch.configs.fm",
     "mind": "repro_torch.configs.mind",
     "autoint": "repro_torch.configs.autoint",
     "bst": "repro_torch.configs.bst",
     "veretennikov": "repro_torch.configs.veretennikov",
-}
-
-# what ports the rest (ROADMAP.md, "Open items", queue 1)
-_NOT_PORTED = {
-    "gin-tu": "item 10 (models/gnn.py)",
 }
 
 
@@ -50,10 +44,6 @@ class ArchSpec:
 
 
 def get_arch(arch_id: str) -> ArchSpec:
-    if arch_id in _NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported yet: ROADMAP.md queue 1, "
-            f"{_NOT_PORTED[arch_id]}")
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ALL_ARCHS)}")
     return importlib.import_module(_MODULES[arch_id]).SPEC
@@ -73,4 +63,16 @@ RECSYS_SHAPES = {
     "serve_p99": {"kind": "serve", "batch": 512},
     "serve_bulk": {"kind": "serve", "batch": 262144},
     "retrieval_cand": {"kind": "retrieval", "batch": 1, "n_candidates": 1_000_000},
+}
+
+GNN_SHAPES = {
+    "full_graph_sm": {"kind": "train_full", "n_nodes": 2708, "n_edges": 10556,
+                      "d_feat": 1433, "n_classes": 7},
+    "minibatch_lg": {"kind": "train_minibatch", "n_nodes": 232965,
+                     "n_edges": 114_615_892, "batch_nodes": 1024,
+                     "fanout": (15, 10), "d_feat": 602, "n_classes": 41},
+    "ogb_products": {"kind": "train_full", "n_nodes": 2_449_029,
+                     "n_edges": 61_859_140, "d_feat": 100, "n_classes": 47},
+    "molecule": {"kind": "train_graphs", "n_nodes": 30, "n_edges": 64,
+                 "batch": 128, "d_feat": 16, "n_classes": 2},
 }

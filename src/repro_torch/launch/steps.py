@@ -4,9 +4,10 @@ serve and retrieval steps.
 The port of `forward_with_cache` and of the recsys cells' step bodies from
 src/repro/launch/steps.py, without the mesh.  The reference module also
 holds the dry-run cells (sharded lowering of every architecture and
-shape), which are not ported yet (ROADMAP.md, item 10d); training runs
-through `repro_torch.train` (`make_train_step`, `fit`) and
-`launch/train.py`.
+shape, the GNN's edge-partitioned cells among them), which are not ported
+yet (ROADMAP.md, item 10d); training, data-parallel too, runs through
+`repro_torch.train` (`make_train_step`, `make_sharded_train_step`, `fit`)
+and `launch/train.py` (the GNN with `--arch gin-tu --shape ...`).
 """
 from __future__ import annotations
 

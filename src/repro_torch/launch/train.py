@@ -2,22 +2,30 @@
 pipeline for the family, and trains with `fit` (checkpoints under
 `--ckpt`).
 
-The port of src/repro/launch/train.py for the lm and recsys families, on
-the card unless `--device cpu` is asked for.  The weights come from the
-port's `init_params` with a CPU generator seeded 0, moved to the device,
-so the card and the CPU start from the same weights; the data from
-`lm_batches` / `ClickLog` seeded 0.  The smoke config is the default
-(`--full` selects the real one).  `--arch gin-tu` raises in the registry
-(the GNN is ROADMAP.md item 10c); the served-only family exits.
+The port of src/repro/launch/train.py for the lm, gnn and recsys
+families, on the card unless `--device cpu` is asked for.  The weights
+come from the port's `init_params` with a CPU generator seeded 0, moved to
+the device, so the card and the CPU start from the same weights; the data
+from `lm_batches` / `ClickLog` / `graph_data` seeded 0 (gnn: `--shape
+molecule` batches of small graphs with the sum readout, `minibatch_lg`
+fanout-sampled subgraphs, otherwise the full graph).  The smoke config is
+the default (`--full` selects the real one); the served-only family
+exits.  Data-parallel training is a library function
+(`train_loop.make_sharded_train_step`), as in the reference: the launcher
+trains on one device.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch fm --steps 6
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \\
         --steps 50 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gin-tu \\
+        --shape molecule --device cpu
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint import CheckpointManager
@@ -34,6 +42,48 @@ def _lm_setup(cfg, batch, seq, device):
                             "cpu").to(device)
     data = lm_batches(cfg.vocab, batch=batch, seq_len=seq, seed=0)
     return model, data, tfm.loss_fn
+
+
+def _gnn_setup(cfg, shape_name, device):
+    from repro_torch.data import graph_data
+    from repro_torch.models import gnn
+
+    def init(c):
+        return gnn.init_params(c, torch.Generator().manual_seed(0),
+                               "cpu").to(device)
+
+    if shape_name == "molecule":
+        cfg = dataclasses.replace(cfg, graph_readout=True)
+
+        def gen():
+            seed = 0
+            while True:
+                b = graph_data.molecule_batch(8, 12, 24, cfg.d_feat,
+                                              cfg.n_classes, seed=seed)
+                seed += 1
+                yield {k: v for k, v in b.items() if k != "n_graphs"}
+
+        extra = {"n_graphs": 8}
+        return init(cfg), gen(), (lambda m, b: gnn.loss_fn(m, dict(b, **extra)))
+    g = graph_data.generate_graph(600, 4000, cfg.d_feat, cfg.n_classes, seed=0)
+    model = init(cfg)
+    if shape_name == "minibatch_lg":
+        rng = np.random.default_rng(0)
+
+        def gen():
+            while True:
+                seeds = rng.integers(0, g.n_nodes, 32)
+                yield graph_data.sample_subgraph(g, seeds, (5, 3), rng)
+
+        return model, gen(), gnn.loss_fn
+
+    full = graph_data.full_graph_batch(g)
+
+    def gen():
+        while True:
+            yield full
+
+    return model, gen(), gnn.loss_fn
 
 
 def _recsys_setup(cfg, batch, device):
@@ -69,13 +119,16 @@ def main(argv=None) -> list:
     args = ap.parse_args(argv)
 
     spec = get_arch(args.arch)
-    if spec.family not in ("lm", "recsys"):
+    if spec.family not in ("lm", "gnn", "recsys"):
         raise SystemExit(f"--arch {args.arch}: family {spec.family} is "
                          "served, not trained (see repro_torch.launch.serve)")
     dev = resolve_device(args.device)
     cfg = spec.make_config() if args.full else spec.make_smoke_config()
     if spec.family == "lm":
         model, data, loss_fn = _lm_setup(cfg, args.batch, args.seq, dev)
+    elif spec.family == "gnn":
+        model, data, loss_fn = _gnn_setup(cfg, args.shape or "full_graph_sm",
+                                          dev)
     else:
         model, data, loss_fn = _recsys_setup(cfg, args.batch, dev)
 

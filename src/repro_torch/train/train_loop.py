@@ -1,19 +1,24 @@
-"""Training loop substrate.
+"""Training loop substrate: the port of src/repro/train/train_loop.py.
 
-The port of src/repro/train/train_loop.py for one device:
-
-make_train_step — a (params, opt_state, batch) step with gradient
-                  accumulation over microbatches on a leading axis;
-fit             — the loop: data iterator, checkpoint manager, metrics.
+make_train_step         — a (params, opt_state, batch) step with gradient
+                          accumulation over microbatches on a leading axis;
+make_sharded_train_step — the data-parallel step over a mesh's dp group:
+                          parameters replicated, the batch split into
+                          contiguous row blocks, the gradient all-reduce
+                          explicit (float32, or int8 with error feedback:
+                          dist/collectives.py); `init_residual` starts
+                          its error feedback;
+fit                     — the loop: data iterator, checkpoint manager,
+                          metrics.
 
 `params` is a model (`nn.Module`: its `named_parameters()` are trained)
 or a dict name -> tensor; `loss_fn(params, batch) -> (loss, metrics)`
 receives it as it is.  The step turns `requires_grad` on for the
 parameters (models are built without it, for serving), takes the
 gradients with `torch.autograd.grad` and updates the parameters in place
-(`optimizer.apply_updates`).  The data-parallel step of the reference
-(`make_sharded_train_step`, with its int8 compressed all-reduce) is not
-ported yet (ROADMAP.md, item 10b).
+(`optimizer.apply_updates`).  Each rank of the data-parallel step is one
+process with one device (`launch/mesh.py`): NCCL on the cards, gloo on
+the CPU; every rank updates its replica with the same reduced gradients.
 """
 from __future__ import annotations
 
@@ -23,6 +28,9 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.checkpoint import CheckpointManager
+from repro_torch.dist import sharding
+from repro_torch.dist.collectives import (all_reduce_sum, all_reduce_sum_,
+                                          compressed_psum_with_feedback)
 from repro_torch.train import optimizer as opt
 
 
@@ -86,6 +94,67 @@ def make_train_step(loss_fn: Callable, opt_cfg: opt.OptimizerConfig,
         return params, opt_state, dict(metrics, loss=loss, **om)
 
     return step
+
+
+def _reduce_mean_(grads: dict, group, n: int) -> dict:
+    """Each gradient summed over `group` in float32 and divided by n, in
+    place: autograd's gradients are fresh tensors.  A gradient that is not
+    a contiguous float32 tensor of its own (another dtype, a strided view,
+    storage shared with another leaf's gradient) is copied first."""
+    owners = {}
+    for g in grads.values():
+        ptr = g.untyped_storage().data_ptr()
+        owners[ptr] = owners.get(ptr, 0) + 1
+    out = {}
+    for k, g in grads.items():
+        if (g.dtype != torch.float32 or not g.is_contiguous()
+                or owners[g.untyped_storage().data_ptr()] > 1):
+            g = g.float().clone(memory_format=torch.contiguous_format)
+        out[k] = all_reduce_sum_(g, group).div_(n)
+    return out
+
+
+def make_sharded_train_step(loss_fn: Callable, opt_cfg: opt.OptimizerConfig,
+                            mesh, compression: Optional[str] = None):
+    """step(params, opt_state, residual, batch) -> (params, opt_state,
+    residual, metrics): the reference's explicit data-parallel step.
+
+    Every rank of `mesh`'s dp group (a `launch.mesh.HostMesh`) calls the
+    step with the same parameters and the same global batch; each takes
+    its block of contiguous rows (`dist.sharding.split_rows`: the batch
+    must divide by the dp size) and its gradients.  They are summed over
+    the group in float32, in place, or with `compression="int8"` through
+    `compressed_psum_with_feedback` (the residual, from `init_residual`,
+    carries the quantization error), then divided by the group's size n;
+    the loss is summed and divided by n too, and every rank applies the
+    same update in place.  The other metrics are the rank's own.  On the
+    one-rank mesh without a process group the sums are the identity: the
+    one-device step."""
+    if compression not in (None, "int8"):
+        raise ValueError(f"compression {compression!r}: None or 'int8'")
+    group, rank, n = sharding.dp_axis(mesh), mesh.dp_rank, mesh.dp_size
+
+    def step(params, opt_state, residual, batch):
+        local = sharding.split_rows(batch, rank, n)
+        loss, metrics, grads = value_and_grad(loss_fn, params, local)
+        if compression == "int8":
+            grads, residual = compressed_psum_with_feedback(grads, residual,
+                                                            group)
+            grads = {k: g.div_(n) for k, g in grads.items()}
+        else:
+            grads = _reduce_mean_(grads, group, n)
+        loss = all_reduce_sum(loss, group) / n
+        _, opt_state, om = opt.apply_updates(opt_cfg, param_dict(params),
+                                             grads, opt_state)
+        return params, opt_state, residual, dict(metrics, loss=loss, **om)
+
+    return step
+
+
+def init_residual(params) -> dict:
+    """Zero float32 error-feedback residuals shaped as `param_dict(params)`."""
+    return {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            for k, p in param_dict(params).items()}
 
 
 @torch.no_grad()

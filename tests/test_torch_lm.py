@@ -386,6 +386,21 @@ def test_configs_match_reference(arch):
 
 
 @pytest.mark.parametrize("arch", ["gin-tu"])
-def test_unported_archs_raise_naming_the_roadmap(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_arch(arch)
+def test_gnn_config_matches_reference(arch):
+    """The GNN the port now registers: its configs' fields and parameter
+    count, family and shape set are the reference's."""
+    from repro.configs.registry import GNN_SHAPES as REF_GNN_SHAPES
+    from repro_torch.configs.registry import GNN_SHAPES
+    spec, ref_spec = get_arch(arch), ref_get_arch(arch)
+    assert spec.family == ref_spec.family == "gnn"
+    assert spec.shapes == GNN_SHAPES == REF_GNN_SHAPES
+    for make in ("make_config", "make_smoke_config"):
+        ref = getattr(ref_spec, make)()
+        cfg = getattr(spec, make)()
+        for f in ("name", "n_layers", "d_hidden", "d_feat", "n_classes",
+                  "graph_readout", "message_dtype"):
+            assert getattr(cfg, f) == getattr(ref, f), (arch, make, f)
+        for f in ("dtype", "param_dtype"):
+            assert (str(getattr(cfg, f)).split(".")[-1]
+                    == jnp.dtype(getattr(ref, f)).name), (arch, make, f)
+        assert cfg.param_count() == ref.param_count()

@@ -195,7 +195,10 @@ def test_port_imports_without_jax_or_reference():
         "import repro_torch.train.optimizer, repro_torch.train.train_loop\n"
         "import repro_torch.checkpoint.checkpoint, repro_torch.data.lm_data\n"
         "import repro_torch.launch.train\n"
+        "import repro_torch.models.gnn, repro_torch.data.graph_data\n"
+        "import repro_torch.dist.sharding, repro_torch.configs.gin_tu\n"
         "from repro_torch.configs.registry import get_arch\n"
+        "assert get_arch('gin-tu').make_config().n_layers == 5\n"
         "assert get_arch('llama3-8b').make_config().n_layers == 32\n"
         "assert get_arch('moonshot-v1-16b-a3b').make_config().moe.top_k == 6\n"
         "for a in ('fm', 'autoint', 'bst', 'mind'):\n"
