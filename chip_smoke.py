@@ -213,7 +213,25 @@ Phases, each reported on its own lines:
    loss, its accuracy equal, its gradients within 1e-4 of their scale;
    (d) `launch/train.py --arch gin-tu --shape molecule --steps 6` with no
    `--device`: finite;
-9. examples — examples/torch_quickstart.py, torch_search_serve.py,
+9. dry-run — (a) `python -m repro_torch.launch.dryrun` on
+   llama3-8b/train_4k, llama3-8b/decode_32k and veretennikov/serve_batch
+   on the single 32 x 8 H100 mesh, a fake-tensor pass of one rank's
+   program in a subprocess started in phase 1 (no allocation, no launch);
+   (b) rank 0's program of each of those cells run for real on the card
+   under the fake process group (`make_production_mesh`: collectives
+   return at once; random weights and caches from --seed, tokens in the
+   vocabulary, zero arenas and tables): its peak memory above the phase's
+   baseline within 10% of the pass's prediction (the prediction without
+   the AdamW state refused), its kernel launches equal to the kernel ops
+   the pass saw and its collective calls by type to the pass's counts
+   (one step), then timed steps beside the pass's roofline terms, then
+   one recorded step whose kernels are held against their plain versions
+   at the shapes it gave them: every layer's flash-decode output on the
+   rank's [4, 32768, 1, 128] random cache (a bf16 ulp of each row's
+   scale; attention over half the cache must be refused), the unpack and
+   intersect kernels exactly on a random arena and random rows at the
+   per-shard shapes of serve_batch;
+10. examples — examples/torch_quickstart.py, torch_search_serve.py,
    torch_distributed_search.py (one NCCL rank per card) and
    torch_train_lm.py (300 steps of a ~100M-parameter LM), each a
    subprocess on the card at its default size, all at once: each must
@@ -225,7 +243,10 @@ count phases 4, 4b and 4c, `serve_launches` phase 4b alone,
 `front_launches` phase 4c alone; flash decode's count phases 6 and 6b,
 and its `moe_shapes` hold its numbers at the two MoE shapes; the segment
 bag's `launches` count phase 8, its `train_launches` phase 8b (c)'s
-steps, its `dp_launches` phase 8c (a)'s dp steps); the last
+steps, its `dp_launches` phase 8c (a)'s dp steps; a kernel that phase 9
+launches counts those launches too, its `dryrun_launches` holds them and
+its `dryrun_max_abs_err` phase 9's hold);
+the last
 line of
 standard output
 is `{"ok": true, "device": {...}}`.  Without a CUDA device, or without the
@@ -733,6 +754,8 @@ def run(args) -> dict:
     with contextlib.ExitStack() as graph_stack:  # ends the graph workers
         # phase 8c's two large graphs, built on the host meanwhile
         graphs = start_gnn_graphs(graph_stack, args.seed)
+        # phase 9's fake pass, meanwhile (it needs no card)
+        dry = start_dryrun(graph_stack)
         with contextlib.ExitStack() as stack:  # ends the oracle's workers
             kernels = search_phases(args, stack, np, torch, t_phase)
         # the search phases' index, engines and tensors are gone with their
@@ -760,6 +783,9 @@ def run(args) -> dict:
         torch.cuda.empty_cache()
         bag["dp_launches"] = dp_gnn_phases(args, np, torch, card, graphs,
                                            fm_step_ms)
+        gc.collect()
+        torch.cuda.empty_cache()
+        dryrun_phase(args, np, torch, dry, kernels)
         gc.collect()
         torch.cuda.empty_cache()
     example_phase()
@@ -4099,6 +4125,385 @@ def dp_gnn_phases(args, np, torch, card, graphs, fm_step_ms) -> int:
 
 
 # ---------------------------------------------------------------------------
+# 9. the dry-run: the fake pass against one rank's program on the card
+# ---------------------------------------------------------------------------
+
+DRYRUN_CELLS = ("llama3-8b/train_4k", "llama3-8b/decode_32k",
+                "veretennikov/serve_batch")
+DRYRUN_PEAK_TOL = 0.10         # predicted peak within 10% of the measured
+DRYRUN_REPS = 3                # timed steps of each cell after the first
+DRYRUN_TIMEOUT_S = 600         # the fake pass, started in phase 1
+DRYRUN_HOLD_SEED = 9           # the random arenas and rows of the holds
+DRYRUN_WRAPPERS = {"unpack_postings": "unpack_postings_cuda",
+                   "banded_intersect_rows": "banded_intersect_rows_cuda",
+                   "banded_min_delta_rows": "banded_min_delta_rows_cuda",
+                   "banded_delta_mask_rows": "banded_delta_mask_rows_cuda",
+                   "flash_decode": "flash_decode_cuda",
+                   "segment_bag_sums": "segment_bag_cuda"}
+
+
+def start_dryrun(stack) -> dict:
+    """Phase 9 (a): `python -m repro_torch.launch.dryrun` on DRYRUN_CELLS
+    (the single 32 x 8 mesh), a subprocess started in phase 1 that runs
+    beside the earlier phases (a fake-tensor pass: no allocation, no
+    launch).  Returns its handle; it ends with `stack`."""
+    import tempfile
+    root = Path(__file__).resolve().parent
+    out_dir = stack.enter_context(tempfile.TemporaryDirectory(
+        prefix="chip_smoke_dryrun_"))
+    log = open(os.path.join(out_dir, "log"), "w")
+    stack.callback(log.close)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(root / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
+                               else []))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--cells",
+         ",".join(DRYRUN_CELLS), "--mesh", "single", "--jobs",
+         str(len(DRYRUN_CELLS)), "--out", out_dir],
+        cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+    stack.callback(stop)
+    return {"proc": proc, "dir": out_dir, "t0": time.perf_counter()}
+
+
+def _dryrun_records(dry) -> dict:
+    """The fake pass's records of DRYRUN_CELLS, once it has ended."""
+    proc = dry["proc"]
+    try:
+        rc = proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S
+                                   - (time.perf_counter() - dry["t0"])))
+    except subprocess.TimeoutExpired:
+        raise SmokeFailure(f"the dry-run's fake pass still runs after "
+                           f"{DRYRUN_TIMEOUT_S} s")
+    with open(os.path.join(dry["dir"], "log")) as fh:
+        log = fh.read()
+    check(rc == 0 and "done; 0 failures" in log,
+          f"the dry-run's fake pass failed (rc {rc}):\n{log[-4000:]}")
+    out = {}
+    for c in DRYRUN_CELLS:
+        arch, shape = c.split("/")
+        with open(os.path.join(dry["dir"], f"{arch}__{shape}__32_8.json")) \
+                as fh:
+            out[c] = json.load(fh)
+    return out
+
+
+def _dryrun_fill(torch, cell, gen):
+    """Rank 0's inputs on the card: random weights from the generator
+    (norm scales 1), random tokens and labels in every vocabulary, random
+    caches (drawn in place: no transient), zero arenas and tables (every
+    index in range; `_dryrun_holds` holds the search kernels on random
+    ones)."""
+    def fill(name, shape, dtype, dev):
+        if name in cell.params and dtype.is_floating_point:
+            if len(shape) == 1 and ("ln" in name or "norm" in name):
+                return torch.ones(shape, dtype=dtype, device=dev)
+            return torch.randn(shape, generator=gen, dtype=torch.float32,
+                               device=dev).mul_(0.02).to(dtype)
+        if name in ("tokens", "labels"):
+            return torch.randint(0, 32000, shape, generator=gen,
+                                 device=dev).to(dtype)
+        if name in ("k", "v"):
+            return torch.empty(shape, dtype=dtype,
+                               device=dev).normal_(generator=gen)
+        return torch.zeros(shape, dtype=dtype, device=dev)
+    return fill
+
+
+@contextlib.contextmanager
+def _signatures(module, name, sigs, sig):
+    """Within the block, `module.name` adds `sig(*args)` of every call to
+    the set `sigs` (the shapes the main path gives a kernel)."""
+    fn = getattr(module, name)
+
+    def rec(*args):
+        sigs.add(sig(*args))
+        return fn(*args)
+    setattr(module, name, rec)
+    try:
+        yield sigs
+    finally:
+        setattr(module, name, fn)
+
+
+def _random_arena(torch, gen, n_lanes, n_blocks, idx_shape):
+    """A packed arena of random blocks at the given sizes: random lane
+    words, field widths 0..32, bases that keep every field's words inside
+    `lanes` (3 fields x 32 bits x BLOCK postings = 384 words at most),
+    random anchors; random ordinals over every block."""
+    kw = dict(generator=gen, device="cuda", dtype=torch.int32)
+    w = torch.randint(0, 33, (n_blocks, 3), **kw)
+    meta = torch.stack([
+        torch.randint(0, n_lanes - 384 + 1, (n_blocks,), **kw),
+        w[:, 0] | (w[:, 1] << 6) | (w[:, 2] << 12),
+        *torch.randint(-(1 << 20), 1 << 20, (3, n_blocks), **kw)], 1)
+    arena = {"lanes": torch.randint(-(1 << 31), (1 << 31) - 1, (n_lanes,),
+                                    **kw),
+             "blk_meta": meta.contiguous()}
+    return arena, torch.randint(0, n_blocks * 128, idx_shape, **kw)
+
+
+def _random_rows(torch, ops, gen, a_shape, b_shape):
+    """Banded-intersect rows at the given shapes: keys over 64 x Pb values
+    (about one in four a keys within band 8 of a b key), b ascending with
+    a sentinel tail on half the rows, a with sentinel pads, bands 0..8."""
+    kw = dict(generator=gen, device="cuda", dtype=torch.int32)
+    (n, pa), pb = a_shape, b_shape[1]
+    b = torch.randint(0, 64 * pb, (n, pb), **kw).sort(dim=1).values
+    b[: n // 2, pb - pb // 4:] = ops.I32_SENTINEL
+    a = torch.randint(0, 64 * pb, (n, pa), **kw)
+    a[:, pa - pa // 8:] = ops.I32_SENTINEL
+    return a, b, torch.randint(0, 9, (n,), **kw)
+
+
+def _dryrun_holds(torch, ops, cell, run):
+    """The kernels of one cell's step held against their plain versions
+    at the shapes the step gives them: `run()` runs the step once with
+    flash decode's calls recorded and the search kernels' shapes taken;
+    each recorded decode call's output (the card's cache, filled at
+    random) against `flash_decode_plain` on its own q, cache and kv_len
+    (a row-relative bf16 ulp, and a half-cache control that must be
+    refused); the unpack and intersect kernels at each recorded shape on
+    a random arena and random rows, exactly.  Returns {kernel: (calls
+    held, max abs err, row-relative err or None, control or None)}."""
+    import repro_torch.core.batch_executor as bx
+    decode, unpack, rows = [], set(), set()
+    with recording(ops, "flash_decode", decode), \
+            _signatures(bx, "unpack_postings", unpack,
+                        lambda arena, idx: (arena["lanes"].shape[0],
+                                            arena["blk_meta"].shape[0],
+                                            tuple(idx.shape))), \
+            _signatures(bx, "banded_intersect_rows", rows,
+                        lambda a, b, bands: (tuple(a.shape),
+                                             tuple(b.shape))):
+        run()
+    torch.cuda.synchronize()
+    out = {}
+    if decode:
+        err = rel = 0.0
+        for (q, k, v, kv_len), o in decode:
+            e, r = hold(torch, f"{cell.arch_id}/{cell.shape_name} "
+                        "flash_decode", o,
+                        ops.flash_decode_plain(q, k, v, kv_len))
+            err, rel = max(err, e), max(rel, r)
+        (q, k, v, kv_len), o = decode[0]
+        ctl = control(torch, "flash_decode over half the cache",
+                      ops.flash_decode_plain(q, k, v, kv_len // 2), o,
+                      ROW_ULP)
+        out["flash_decode"] = (len(decode), err, rel, ctl)
+    del decode
+    gen = torch.Generator(device="cuda").manual_seed(DRYRUN_HOLD_SEED)
+    for name, sigs in (("unpack_postings", unpack),
+                       ("banded_intersect_rows", rows)):
+        err = 0
+        for sig in sorted(sigs):
+            if name == "unpack_postings":
+                arena, idx = _random_arena(torch, gen, *sig)
+                got = ops.unpack_postings(arena, idx)
+                want = ops.unpack_postings_plain(arena, idx)
+                check(bool(torch.any(want[0] != 0)), "random arena: all zero")
+            else:
+                a, b, bands = _random_rows(torch, ops, gen, *sig)
+                got = (ops.banded_intersect_rows(a, b, bands),)
+                want = (ops.banded_intersect_rows_plain(a, b, bands),)
+                check(bool(want[0].any()) and not bool(want[0].all()),
+                      f"random rows {sig}: every probe alike")
+            for g, w in zip(got, want):
+                err = max(err, int((g.long() - w.long()).abs().max()))
+            del got, want
+        check(err == 0, f"{cell.arch_id}/{cell.shape_name} {name} != its "
+                        f"plain version at {sorted(sigs)}: max abs err {err}")
+        if sigs:
+            out[name] = (len(sigs), err, None, None)
+    return out
+
+
+def _dispatch_us(torch, ops, n=2000, rounds=3):
+    """Host microseconds per call of the flash-decode kernel through its
+    operator (`ops.flash_decode`, the path every caller takes) and through
+    the ctypes wrapper directly, on a one-tile cache (the device time is
+    far below the host's): medians of `rounds` runs of `n` calls each, in
+    turns (operator, direct, direct, operator)."""
+    q = torch.randn(1, 8, 128, dtype=torch.bfloat16, device="cuda")
+    k = torch.randn(1, 64, 1, 128, dtype=torch.bfloat16, device="cuda")
+    kv = torch.full((1,), 64, dtype=torch.int32, device="cuda")
+    fns = {"op": lambda: ops.flash_decode(q, k, k, kv),
+           "direct": lambda: ops.flash_decode_cuda(q, k, k, kv)}
+    got = {"op": [], "direct": []}
+    for name in ("op", "direct"):
+        for _ in range(50):
+            fns[name]()
+    for _ in range(rounds):
+        for name in ("op", "direct", "direct", "op"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fns[name]()
+            torch.cuda.synchronize()
+            got[name].append((time.perf_counter() - t0) / n * 1e6)
+    return percentile(got["op"], 50), percentile(got["direct"], 50)
+
+
+def dryrun_phase(args, np, torch, dry, kernels) -> None:
+    """Phase 9 (b): rank 0's program of each DRYRUN_CELLS cell run for
+    real on the card under the fake process group of the 32 x 8 mesh
+    (collectives return at once; shapes and kernels are real), held
+    against the fake pass's record: the peak above the phase's baseline
+    within DRYRUN_PEAK_TOL of the prediction (and the prediction without
+    the AdamW state refused), kernel launches equal to the kernel ops the
+    pass saw and collective calls by type equal to its counts, one step
+    each; then DRYRUN_REPS timed steps beside the roofline's compute and
+    memory terms, and one recorded step whose kernels are held against
+    their plain versions (`_dryrun_holds`).  The launches join the
+    kernels' entries.  Last, the host
+    cost of a kernel's operator dispatch (`_dispatch_us`)."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.steps import build_cell, materialize
+
+    t_start = time.perf_counter()
+    records = _dryrun_records(dry)
+    say("dryrun_fake", cells=len(records),
+        waited_s=f"{time.perf_counter() - t_start:.1f}",
+        trace_s=json.dumps({c: r["t_trace_s"] for c, r in records.items()}))
+    wrappers = {k: getattr(ops, v) for k, v in DRYRUN_WRAPPERS.items()}
+    phase_launches = dict.fromkeys(wrappers, 0)
+    hold_err = {}
+    mesh = make_production_mesh(False)
+    try:
+        for c in DRYRUN_CELLS:
+            rec = records[c]
+            arch, shape = c.split("/")
+            cell = build_cell(arch, shape, mesh)
+            gen = torch.Generator(device="cuda").manual_seed(args.seed)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            params, state, inputs = materialize(
+                cell, "cuda", _dryrun_fill(torch, cell, gen))
+            counter = dr.PassCounter(dr._axes_of(cell))
+            before = {k: w.launches for k, w in wrappers.items()}
+            with counter:
+                out = cell.step(params, state, inputs)
+            del out
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            launched = {k: w.launches - before[k] for k, w in wrappers.items()}
+            saw = rec["kernels"]
+            for k in wrappers:
+                check(launched[k] == saw.get(k, 0),
+                      f"dry-run {c}: {launched[k]} {k} launches, the fake "
+                      f"pass saw {saw.get(k, 0)}")
+            fake_coll = rec["collectives"]["op_counts"]
+            check(counter.coll_ops == fake_coll,
+                  f"dry-run {c}: collectives {counter.coll_ops}, the fake "
+                  f"pass counted {fake_coll}")
+            pred = rec["memory"]["peak_bytes"]
+            err = abs(pred - peak) / peak
+            check(err <= DRYRUN_PEAK_TOL,
+                  f"dry-run {c}: predicted peak {pred / 1e9:.3f} GB, "
+                  f"measured {peak / 1e9:.3f} GB ({err:.1%})")
+            opt_b = rec["memory"]["optimizer_bytes"]
+            control = None
+            if opt_b:
+                control = abs(pred - opt_b - peak) / peak
+                check(control > DRYRUN_PEAK_TOL,
+                      f"dry-run {c}: the prediction without the AdamW state "
+                      f"({(pred - opt_b) / 1e9:.3f} GB) passes the check")
+            ms = []
+            before = {k: w.launches for k, w in wrappers.items()}
+            for _ in range(DRYRUN_REPS):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = cell.step(params, state, inputs)
+                end.record()
+                end.synchronize()
+                del out
+                ms.append(start.elapsed_time(end))
+            for k, w in wrappers.items():
+                reps = w.launches - before[k]
+                check(reps == DRYRUN_REPS * saw.get(k, 0),
+                      f"dry-run {c}: {reps} {k} launches in {DRYRUN_REPS} "
+                      f"steps, want {DRYRUN_REPS * saw.get(k, 0)}")
+                phase_launches[k] += launched[k] + reps
+            # one more step, its kernels' calls recorded, then the holds,
+            # whose own launches are not the path's
+            before = {k: w.launches for k, w in wrappers.items()}
+            counts = {}
+
+            def run():
+                cell.step(params, state, inputs)
+                counts.update({k: w.launches - before[k]
+                               for k, w in wrappers.items()})
+            held = _dryrun_holds(torch, ops, cell, run)
+            for k, w in wrappers.items():
+                check(counts[k] == saw.get(k, 0),
+                      f"dry-run {c}: {counts[k]} {k} launches in the "
+                      f"recorded step, want {saw.get(k, 0)}")
+                phase_launches[k] += counts[k]
+                w.launches = before[k] + counts[k]
+            for k, (n, err, rel, ctl) in held.items():
+                hold_err[k] = max(hold_err.get(k, 0), err)
+                say("dryrun_hold", cell=c, kernel=k, held=n,
+                    max_abs_err=err,
+                    row_rel_err="n/a" if rel is None else f"{rel:.3e}",
+                    control="n/a" if ctl is None else f"{ctl:.3e}")
+            del params, state, inputs
+            roof = rec["roofline"]
+            step_ms = percentile(ms, 50)
+            bound = max(roof["t_compute_s"], roof["t_memory_s"]) * 1e3
+            say("dryrun", cell=c, mesh=rec["mesh"], kind=rec["kind"],
+                predicted_peak_gb=f"{pred / 1e9:.3f}",
+                measured_peak_gb=f"{peak / 1e9:.3f}", peak_err=f"{err:.4f}",
+                control_err=("n/a" if control is None else f"{control:.4f}"),
+                fits=rec["memory"]["fits"],
+                launches=json.dumps({k: v for k, v in launched.items() if v}),
+                fake_ops=json.dumps(saw),
+                collectives=json.dumps(counter.coll_ops),
+                step_ms=f"{step_ms:.3f}", steps_ms=json.dumps(
+                    [round(x, 3) for x in ms]),
+                t_compute_ms=f"{roof['t_compute_s'] * 1e3:.3f}",
+                t_memory_ms=f"{roof['t_memory_s'] * 1e3:.3f}",
+                t_collective_ms=f"{roof['t_collective_s'] * 1e3:.3f}",
+                dominant=roof["dominant"],
+                share_of_larger=f"{bound / step_ms:.4f}")
+    finally:
+        dist.destroy_process_group()
+    op_us, direct_us = _dispatch_us(torch, ops)
+    say("dryrun_dispatch", what="flash_decode at [1, 64] cache, host us a "
+        "call", op_us=f"{op_us:.2f}", direct_us=f"{direct_us:.2f}",
+        overhead_us=f"{op_us - direct_us:.2f}")
+    by_name = {k["name"]: k for k in kernels}
+    for op, name in (("unpack_postings", "unpack_postings"),
+                     ("banded_intersect_rows", "banded_intersect_rows"),
+                     ("banded_min_delta_rows", "banded_min_delta_rows"),
+                     ("banded_delta_mask_rows", "banded_delta_mask_rows"),
+                     ("flash_decode", "flash_decode"),
+                     ("segment_bag_sums", "segment_bag")):
+        entry = by_name[name]
+        entry["dryrun_launches"] = phase_launches[op]
+        entry["launches"] += phase_launches[op]
+        if op in hold_err:
+            entry["dryrun_max_abs_err"] = hold_err[op]
+    for op in ("flash_decode", "unpack_postings", "banded_intersect_rows"):
+        check(phase_launches[op] > 0, f"dry-run: no {op} launch in phase 9")
+        check(op in hold_err, f"dry-run: {op} was not held against its "
+                              f"plain version")
+    phase_done("dryrun", t_start)
+
+
+# ---------------------------------------------------------------------------
 # the port's examples
 # ---------------------------------------------------------------------------
 
@@ -4108,7 +4513,7 @@ EXAMPLE_TIMEOUT_S = 600
 
 
 def example_phase():
-    """Phase 9: the port's four examples (examples/torch_*.py), each
+    """Phase 10: the port's four examples (examples/torch_*.py), each
     a subprocess on the card at its default size, all started at once
     (their index builds are host work); each must exit 0 within
     EXAMPLE_TIMEOUT_S.  Prints each one's seconds and last lines; kills
@@ -4256,6 +4661,40 @@ def _ab_main_path(tree, blob, freeze):
     return out
 
 
+AB_DECODE_STEPS = 48           # timed llama3-8b decode steps per run
+
+
+def _ab_decode(tree, seed, batch, cur_len, steps):
+    """`tree`'s llama3-8b decode step at full width in bf16 (random weights
+    from `seed`; a [batch, 32768] cache filled to `cur_len`) through the
+    flash-decode kernel: p50 / p99 ms of `steps` greedy steps after two
+    warm-up steps, and a digest of the tokens."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import transformer as tfm
+    cfg = tfm.serving_config(get_arch("llama3-8b").make_config())
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = tfm.init_params(cfg, gen, device="cuda")
+    cache = tfm.init_cache(cfg, batch, 32768, device="cuda")
+    for c in cache.values():
+        c.normal_(generator=gen)
+    tok = torch.randint(0, cfg.vocab, (batch,), generator=gen, device="cuda")
+    lat, digest = [], hashlib.sha256()
+    for i in range(steps + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = tfm.decode_step(model, cache, tok, cur_len + i,
+                                        attn_impl="flash")
+        tok = logits[:, :cfg.vocab].argmax(-1)
+        torch.cuda.synchronize()
+        if i >= 2:
+            lat.append(time.perf_counter() - t0)
+        digest.update(tok.cpu().numpy().tobytes())
+    return {"decode_p50_ms": percentile(lat, 50) * 1e3,
+            "decode_p99_ms": percentile(lat, 99) * 1e3,
+            "decode_digest": digest.hexdigest()[:16]}
+
+
 def run_ab(args) -> int:
     """`--ab TREE ...`: the unranked main path of each checkout in TREE, in
     the order given, on one card.  The corpus and index are built once, on
@@ -4268,7 +4707,10 @@ def run_ab(args) -> int:
     executor's phase seconds.  The list runs once with `gc.collect();
     gc.freeze()` after set-up and once without, so every checkout sees the
     same harness either way.  The answers (doc, pos, postings_read per
-    response) must agree across runs."""
+    response) must agree across runs.  Then each checkout's llama3-8b
+    decode step (`_ab_decode`: full width, bf16, random weights, a
+    `--lm-batch` x 32768 cache at `--lm-prompt` tokens, AB_DECODE_STEPS
+    flash steps) in the same order: p50 / p99 ms, the tokens equal."""
     import numpy as np
     ab_check_trees(args.ab)
     from repro_torch.core import (CorpusConfig, LexiconConfig, build_all,
@@ -4300,10 +4742,16 @@ def run_ab(args) -> int:
                 say("ab", tree=r["tree"], gc_freeze=freeze, engine=eng,
                     **_fmt(r[eng]))
             runs.append({"gc_freeze": freeze, **r})
-    print(json.dumps({"ab": runs}), flush=True)
+    decode = ab_runs(args.ab, _ab_decode, args.seed, args.lm_batch,
+                     args.lm_prompt, AB_DECODE_STEPS)
+    for r in decode:
+        say("ab_decode", **_fmt(r))
+    print(json.dumps({"ab": runs, "ab_decode": decode}), flush=True)
     digests = {(eng, r[eng]["digest"]) for r in runs for eng in
                ("additional", "ordinary")}
     check(len(digests) == 2, f"answers differ across runs: {digests}")
+    tokens = {r["decode_digest"] for r in decode}
+    check(len(tokens) == 1, f"decoded tokens differ across runs: {tokens}")
     return 0
 
 

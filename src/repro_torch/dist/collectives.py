@@ -23,6 +23,18 @@ backward is the identity, because every rank differentiates its own share
 of the summed value (each rank's loss is the total, and its parameter
 gradient is its share: the ranks' gradients sum to the total's).
 
+`gather_dim`, `scatter_sum_dim` and `sum_over` — the collectives of the
+dry-run's per-rank programs (launch/steps.py), under autograd with the
+adjoints of a sum of per-rank objectives: `gather_dim` concatenates every
+rank's block along a dimension (its backward a reduce-scatter),
+`scatter_sum_dim` sums every rank's tensor and keeps this rank's block
+along a dimension (its backward the all-gather), `sum_over` is the
+all-reduce whose backward is the all-reduce of the gradients,
+`all_to_all_dim` sends block i along one dimension to rank i and
+concatenates what it receives along another (its backward the all-to-all
+the other way).  Gloo has no reduce-scatter, so there it is an all-reduce
+and this rank's block.
+
 `group` is a `torch.distributed` process group (the default group when
 None, as `torch.distributed`'s own collectives take it).  Without an
 initialised process group every sum and gather is over one rank, the
@@ -161,3 +173,153 @@ def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
     on every rank, under autograd (the backward sums each block's gradient
     over the ranks and gives it to the block's owner)."""
     return _AllGather.apply(x, group)
+
+
+# ---------------------------------------------------------------------------
+# the per-rank programs' collectives (the dry-run's cells)
+# ---------------------------------------------------------------------------
+
+# the single-tensor collectives (renamed in newer PyTorch releases)
+_ALL_GATHER = getattr(dist, "all_gather_single", None) \
+    or dist.all_gather_into_tensor
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) \
+    or dist.reduce_scatter_tensor
+
+
+def _size(group) -> int:
+    return dist.get_world_size(group) if dist.is_initialized() else 1
+
+
+def _gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    n = _size(group)
+    if n == 1:
+        return x
+    x = x.movedim(dim, 0).contiguous()
+    out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    _ALL_GATHER(out, x, group=group)
+    return out.movedim(0, dim)
+
+
+def _scatter_sum(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    n = _size(group)
+    if n == 1:
+        return x
+    x = x.movedim(dim, 0).contiguous()
+    k = x.shape[0] // n
+    if dist.get_backend(group) == "gloo":       # no reduce-scatter in gloo
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        out = x.narrow(0, dist.get_rank(group) * k, k)
+    else:
+        out = torch.empty((k,) + tuple(x.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        _REDUCE_SCATTER(out, x, group=group)
+    return out.movedim(0, dim)
+
+
+def _all_to_all(x: torch.Tensor, split_dim: int, cat_dim: int,
+                group) -> torch.Tensor:
+    n = _size(group)
+    if n == 1:
+        return x
+    xs = x.movedim(split_dim, 0).contiguous()
+    out = torch.empty_like(xs)
+    dist.all_to_all_single(out, xs, group=group)
+    # [source rank, this rank's block along split_dim, the rest]
+    out = out.reshape(n, xs.shape[0] // n, *xs.shape[1:])
+    out = out.movedim(1, split_dim + 1).movedim(0, cat_dim)
+    shape = list(out.shape)
+    shape[cat_dim:cat_dim + 2] = [shape[cat_dim] * shape[cat_dim + 1]]
+    return out.reshape(shape)
+
+
+class _AllToAllDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_dim, cat_dim, group):
+        ctx.dims, ctx.group = (split_dim, cat_dim), group
+        return _all_to_all(x, split_dim, cat_dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        split_dim, cat_dim = ctx.dims
+        return (_all_to_all(grad, cat_dim, split_dim, ctx.group), None, None,
+                None)
+
+
+class _GatherDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _scatter_sum(grad, ctx.dim, ctx.group), None, None
+
+
+class _ScatterSumDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _scatter_sum(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _gather(grad, ctx.dim, ctx.group), None, None
+
+
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_sum(grad.contiguous(), ctx.group), None
+
+
+def gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's block of `group` concatenated along `dim` in rank order
+    (an all-gather), under autograd (the backward: a reduce-scatter)."""
+    if _size(group) == 1:
+        return x
+    return _GatherDim.apply(x, dim, group)
+
+
+def scatter_sum_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum of every rank's x, of which this rank keeps its block along
+    `dim` (a reduce-scatter), under autograd (the backward: the
+    all-gather)."""
+    if _size(group) == 1:
+        return x
+    return _ScatterSumDim.apply(x, dim, group)
+
+
+def sum_over(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every rank's x, on every rank, under autograd as part of
+    a sum of per-rank objectives (the backward all-reduces the gradients;
+    `psum` above is the other convention)."""
+    if _size(group) == 1:
+        return x
+    return _SumOver.apply(x, group)
+
+
+def all_to_all_dim(x: torch.Tensor, split_dim: int, cat_dim: int,
+                   group) -> torch.Tensor:
+    """x split into one block per rank of `group` along `split_dim`, block
+    i sent to rank i; the blocks this rank receives concatenated along
+    `cat_dim` in rank order (an all-to-all), under autograd (the backward:
+    the all-to-all from `cat_dim` back to `split_dim`)."""
+    if _size(group) == 1:
+        return x
+    return _AllToAllDim.apply(x, split_dim, cat_dim, group)
+
+
+def max_over(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise maximum over `group`, without a gradient."""
+    x = x.detach().clone()
+    if _size(group) > 1:
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
+    return x

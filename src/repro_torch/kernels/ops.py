@@ -10,6 +10,15 @@ card.  The K-word window scan (`delta_mask_t_bits`) runs in the
 delta-mask kernel's launch on the card, where the reference's XLA fuses
 its jnp into the bucket's program; `kword_window_hits`, the AND of the
 scan over constraint groups, is plain tensor code on both devices.
+
+On a CUDA tensor each kernel is one operator of the `repro_torch`
+library (`torch.ops.repro_torch.<name>`): its CUDA implementation is the
+kernel's launch, its CPU implementation the plain version, and its fake
+implementation gives the outputs' shapes and dtypes alone (none of the
+plain version's temporaries), so that a `FakeTensorMode` pass on device
+`cuda` (the dry-run, launch/dryrun.py) sees each kernel as one op and
+launches nothing.  A CPU tensor calls the plain version directly (its
+autograd included); a meta tensor takes the operator, as a CUDA one.
 """
 from __future__ import annotations
 
@@ -42,8 +51,44 @@ _BLOCK = 1 << _BLOCK_LOG2
 _WBITS = 6
 
 
+# ---------------------------------------------------------------------------
+# the kernels as operators (see the module docstring)
+# ---------------------------------------------------------------------------
+
+_LIB = torch.library.Library("repro_torch", "DEF")
+_LIB.define("unpack_postings(Tensor lanes, Tensor blk_meta, Tensor idx) "
+            "-> (Tensor, Tensor, Tensor)")
+_LIB.define("banded_intersect_rows(Tensor a, Tensor b_sorted, Tensor bands) "
+            "-> Tensor")
+_LIB.define("banded_min_delta_rows(Tensor a, Tensor bk, Tensor bd, "
+            "Tensor bands) -> Tensor")
+_LIB.define("banded_delta_mask_rows(Tensor a, Tensor b_sorted, Tensor bands, "
+            "Tensor windows) -> (Tensor, Tensor)")
+_LIB.define("flash_decode(Tensor q, Tensor k, Tensor v, Tensor kv_len) "
+            "-> Tensor")
+_LIB.define("segment_bag_sums(Tensor table, Tensor ids, Tensor? weights) "
+            "-> Tensor")
+KERNEL_OPS = ("unpack_postings", "banded_intersect_rows",
+              "banded_min_delta_rows", "banded_delta_mask_rows",
+              "flash_decode", "segment_bag_sums")
+
+
+def _define(name: str, cuda: str, cpu, fake):
+    """Register operator `name`: its CUDA implementation is this module's
+    wrapper `cuda`, looked up at each call (so that a caller may replace
+    it), its CPU implementation `cpu`, its fake implementation `fake`."""
+    _LIB.impl(name, lambda *args: globals()[cuda](*args), "CUDA")
+    _LIB.impl(name, cpu, "CPU")
+    torch.library.register_fake(f"repro_torch::{name}", fake, lib=_LIB)
+
+
 def _on_cpu(x: torch.Tensor, what: str) -> bool:
-    if x.is_cuda:
+    """True for a CPU tensor (the plain version); False for a CUDA tensor
+    and for a meta one, which take the operator (a meta tensor is the
+    dry-run's pass on a PyTorch built without CUDA, where autograd cannot
+    run on fake CUDA tensors; the operator's fake implementation serves
+    it)."""
+    if x.is_cuda or x.is_meta:
         return False
     if x.device.type != "cpu":
         raise ValueError(f"{what}: unsupported device {x.device}")
@@ -83,7 +128,8 @@ def unpack_postings(arena: dict, idx: torch.Tensor):
     the card, the plain version on the CPU."""
     if _on_cpu(idx, "unpack_postings"):
         return unpack_postings_plain(arena, idx)
-    return unpack_postings_cuda(arena["lanes"], arena["blk_meta"], idx)
+    return torch.ops.repro_torch.unpack_postings(arena["lanes"],
+                                                 arena["blk_meta"], idx)
 
 
 # ---------------------------------------------------------------------------
@@ -112,7 +158,7 @@ def banded_intersect_rows(a: torch.Tensor, b_sorted: torch.Tensor,
     CUDA kernel on the card, the plain version on the CPU."""
     if _on_cpu(a, "banded_intersect_rows"):
         return banded_intersect_rows_plain(a, b_sorted, bands)
-    return banded_intersect_rows_cuda(a, b_sorted, bands)
+    return torch.ops.repro_torch.banded_intersect_rows(a, b_sorted, bands)
 
 
 def banded_intersect(a: torch.Tensor, b_sorted: torch.Tensor,
@@ -169,7 +215,7 @@ def banded_min_delta_rows(a: torch.Tensor, bk: torch.Tensor, bd: torch.Tensor,
     CUDA kernel on the card, the plain version on the CPU."""
     if _on_cpu(a, "banded_min_delta_rows"):
         return banded_min_delta_rows_plain(a, bk, bd, bands)
-    return banded_min_delta_rows_cuda(a, bk, bd, bands)
+    return torch.ops.repro_torch.banded_min_delta_rows(a, bk, bd, bands)
 
 
 # ---------------------------------------------------------------------------
@@ -207,7 +253,8 @@ def banded_delta_mask_rows(a: torch.Tensor, b_sorted: torch.Tensor,
     if _on_cpu(a, "banded_delta_mask_rows"):
         mask = banded_delta_mask_rows_plain(a, b_sorted, bands)
         return mask, delta_mask_t_bits(mask, windows)
-    return banded_delta_mask_rows_cuda(a, b_sorted, bands, windows)
+    return torch.ops.repro_torch.banded_delta_mask_rows(a, b_sorted, bands,
+                                                        windows)
 
 
 def delta_mask_t_bits(mask: torch.Tensor, bands: torch.Tensor) -> torch.Tensor:
@@ -318,8 +365,8 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     on the CPU."""
     if _on_cpu(q, "flash_decode"):
         return flash_decode_plain(q, k, v, kv_len)
-    return flash_decode_cuda(q, k, v, _kv_len_rows(kv_len, q.shape[0],
-                                                   q.device))
+    return torch.ops.repro_torch.flash_decode(
+        q, k, v, _kv_len_rows(kv_len, q.shape[0], q.device))
 
 
 # ---------------------------------------------------------------------------
@@ -444,8 +491,45 @@ def segment_bag(table: torch.Tensor, ids: torch.Tensor,
         ids = ids.clamp(-1, V - 1).to(torch.int32)
     w = None if weights is None else weights.to(table.dtype).contiguous()
     table, ids = table.contiguous(), ids.contiguous()
+    sums_op = torch.ops.repro_torch.segment_bag_sums
     if torch.is_grad_enabled():
-        sums = SegmentBagFn.apply(table, w, ids, segment_bag_cuda)
+        sums = SegmentBagFn.apply(table, w, ids, sums_op)
     else:
-        sums = segment_bag_cuda(table, ids, w)
+        sums = sums_op(table, ids, w)
     return _bag_combine(sums, ids, combine, table.dtype)
+
+
+# ---------------------------------------------------------------------------
+# operator registrations: CUDA = the kernel, CPU = the plain version (each
+# looked up at call time), fake = the outputs' shapes and dtypes
+# ---------------------------------------------------------------------------
+
+def _i32_like(x: torch.Tensor) -> torch.Tensor:
+    return torch.empty(x.shape, dtype=torch.int32, device=x.device)
+
+
+_define("unpack_postings", "unpack_postings_cuda",
+        lambda lanes, meta, idx: unpack_postings_plain(
+            {"lanes": lanes, "blk_meta": meta}, idx),
+        lambda lanes, meta, idx: (_i32_like(idx), _i32_like(idx),
+                                  _i32_like(idx)))
+_define("banded_intersect_rows", "banded_intersect_rows_cuda",
+        lambda *args: banded_intersect_rows_plain(*args),
+        lambda a, b, bands: torch.empty(a.shape, dtype=torch.bool,
+                                        device=a.device))
+_define("banded_min_delta_rows", "banded_min_delta_rows_cuda",
+        lambda *args: banded_min_delta_rows_plain(*args),
+        lambda a, bk, bd, bands: _i32_like(a))
+_define("banded_delta_mask_rows", "banded_delta_mask_rows_cuda",
+        lambda a, b, bands, windows: (
+            lambda m: (m, delta_mask_t_bits(m, windows)))(
+                banded_delta_mask_rows_plain(a, b, bands)),
+        lambda a, b, bands, windows: (_i32_like(a), _i32_like(a)))
+_define("flash_decode", "flash_decode_cuda",
+        lambda *args: flash_decode_plain(*args),
+        lambda q, k, v, kv_len: torch.empty_like(q))
+_define("segment_bag_sums", "segment_bag_cuda",
+        lambda *args: _bag_sums_plain(*args),
+        lambda table, ids, weights: torch.empty(
+            (ids.shape[0], table.shape[1]), dtype=torch.float32,
+            device=table.device))

@@ -26,7 +26,12 @@ turns it on); the forwards are plain functions of the model.  The
 halo-exchange variant (`halo_layer`, `halo_loss_fn`) runs one rank per
 node shard of `data.graph_data.partition_for_halo`, its boundary rows
 exchanged by `dist.collectives.all_gather` and its loss summed by
-`dist.collectives.psum`, both under autograd.
+`dist.collectives.psum`, both under autograd.  The edge-partitioned
+variant (`edge_partitioned_loss_fn`, the dry-run's GIN step) splits node
+rows and edges over every rank of a group: each layer all-gathers the
+node rows, this rank's edges make their messages into all N rows, and
+the sums are reduce-scattered back to their owners
+(`dist.collectives.gather_dim` / `scatter_sum_dim`, under autograd).
 """
 from __future__ import annotations
 
@@ -255,3 +260,67 @@ def halo_loss_fn(model: GIN, shard: dict, group=None):
     loss = collectives.psum(nll.sum(), group) / denom
     acc = collectives.all_reduce_sum(hits.sum(), group) / denom
     return loss, {"acc": acc}
+
+
+# ---------------------------------------------------------------------------
+# edge-partitioned variant: rows and edges split over every rank
+# ---------------------------------------------------------------------------
+
+def edge_partitioned_loss_fn(model: GIN, shard: dict, group=None,
+                             n_graphs=None):
+    """This rank's share of the loss of the edge-partitioned GIN over
+    `group` (the reference's SPMD `loss_fn` with `gin_batch_specs`: rows
+    and edges split over all axes).  `shard`: this rank's contiguous
+    blocks of nodes [N/n, F], labels / label_mask / node_mask [N/n] (or
+    [n_graphs] whole, the readout's labels), graph_id [N/n], and of src /
+    dst / edge_mask [E/n] (global node ids).  Each layer gathers the node
+    rows whole, adds this rank's edges' messages into [N, d] and
+    reduce-scatters the sums to their owners.  Returns (share, {"acc"}):
+    the shares of the ranks sum to the whole graph's mean NLL, so each
+    rank's gradient is its share of the whole loss's (the caller sums
+    the gradients over the group); acc is the whole batch's."""
+    from repro_torch.dist.collectives import gather_dim, scatter_sum_dim, \
+        sum_over
+    cfg = model.cfg
+    dt = cfg.dtype
+    msg_dt = cfg.message_dtype or dt
+    h = shard["nodes"].to(dt)
+    src, dst, emask = shard["src"].long(), shard["dst"].long(), \
+        shard["edge_mask"]
+    for layer in model.layers:
+        table = gather_dim(h.to(msg_dt), 0, group)
+        part = _Aggregate.apply(table, src, dst, emask, table.shape[0])
+        msg = scatter_sum_dim(part, 0, group).to(dt)
+        h = _mlp(layer, h, msg, dt)
+    labels, mask = shard["labels"], shard["label_mask"]
+    if cfg.graph_readout:
+        G = int(n_graphs)
+        pooled = torch.zeros((G, h.shape[1]), dtype=dt, device=h.device)
+        pooled = pooled.index_add(0, shard["graph_id"].long(),
+                                  h * shard["node_mask"].to(dt)[:, None])
+        h = sum_over(pooled, group)
+        n, r = _group_size(group), _group_rank(group)
+        k = labels.shape[0]
+        if k == G:              # labels whole: this rank takes its graphs
+            k = -(-G // n)
+            lo, hi = min(r * k, G), min(r * k + k, G)
+            labels, mask = labels[lo:hi], mask[lo:hi]
+        else:                   # labels split: this rank's block of graphs
+            lo, hi = r * k, r * k + k
+        h = h[lo:hi]
+    logits = (h @ model.head_w.to(dt) + model.head_b.to(dt)).float()
+    mask = mask.float()
+    nll, hits = _nll_and_hits(logits, labels, mask)
+    denom = torch.clamp(sum_over(mask.sum(), group).detach(), min=1.0)
+    acc = sum_over(hits.sum(), group).detach() / denom
+    return nll.sum() / denom, {"acc": acc}
+
+
+def _group_size(group) -> int:
+    import torch.distributed as dist
+    return dist.get_world_size(group) if dist.is_initialized() else 1
+
+
+def _group_rank(group) -> int:
+    import torch.distributed as dist
+    return dist.get_rank(group) if dist.is_initialized() else 0

@@ -64,8 +64,10 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 def exact_f32_products(x: torch.Tensor):
     """Let float32 products on the card run in TF32 while their operands
     hold bf16 (or fp16) values, which TF32 represents exactly; restores the
-    setting on exit.  A no-op for float32 inputs and on the CPU."""
-    if not x.is_cuda or x.dtype not in (torch.bfloat16, torch.float16):
+    setting on exit.  A no-op for float32 inputs and on the CPU (on the
+    dry-run's meta device it sets the flag that its flop count reads)."""
+    if (not (x.is_cuda or x.is_meta)
+            or x.dtype not in (torch.bfloat16, torch.float16)):
         yield
         return
     prev = torch.backends.cuda.matmul.allow_tf32

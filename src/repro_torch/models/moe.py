@@ -37,13 +37,22 @@ class MoEConfig:
 
 
 def router_aux_loss(probs: torch.Tensor, expert_idx: torch.Tensor,
-                    n_experts: int) -> torch.Tensor:
-    """Switch-style load-balancing loss: E * sum_e f_e * P_e (float32)."""
+                    n_experts: int, reduce=None) -> torch.Tensor:
+    """Switch-style load-balancing loss: E * sum_e f_e * P_e (float32).
+    `reduce(counts, prob_sums) -> (counts, prob_sums, ranks)` sums the
+    per-expert assignment counts and probability sums over the ranks
+    that route the other groups (the dry-run's per-rank program), so the
+    loss is the whole batch's."""
     counts = torch.zeros((n_experts,), dtype=torch.float32,
                          device=probs.device)
     counts.index_add_(0, expert_idx.reshape(-1),
                       torch.ones((expert_idx.numel(),), dtype=torch.float32,
                                  device=probs.device))
+    if reduce is not None:
+        flat = probs.reshape(-1, n_experts).float()
+        counts, psum, n = reduce(counts, flat.sum(dim=0))
+        frac = counts / max(expert_idx.numel() * n, 1)
+        return n_experts * torch.sum(frac * psum / (flat.shape[0] * n))
     frac = counts / max(expert_idx.numel(), 1)
     mean_prob = probs.reshape(-1, n_experts).float().mean(dim=0)
     return n_experts * torch.sum(frac * mean_prob)
@@ -88,7 +97,8 @@ def dispatch(gate_idx: torch.Tensor, C: int, E: int):
 
 def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
             w_up: torch.Tensor, w_down: torch.Tensor, cfg: MoEConfig, dtype,
-            dropless: bool = False):
+            dropless: bool = False, experts=None, exchange=None,
+            aux_reduce=None):
     """x: [..., D] tokens (groups split the LEADING dim); router_w [D, E];
     w_gate, w_up [E, D, Fe]; w_down [E, Fe, D].
 
@@ -98,6 +108,18 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
     incremental decode equals the forward.  Otherwise C = int(Tg * K / E *
     capacity_factor) + 1 and assignments past an expert's capacity go to
     the trash row (training's dispatch).
+
+    `experts` = (lo, hi): one rank's share of a layer whose experts are
+    split over ranks (the dry-run's per-rank program).  w_down holds
+    experts [lo, hi); so do w_gate and w_up, unless `exchange` is given:
+    then they hold this rank's d_expert columns of every expert [E, D,
+    Fe'], and the SwiGLU activations of every expert on those columns [E,
+    G * C, Fe'] go through `exchange`, which returns those of experts
+    [lo, hi) on every column [hi - lo, G * C, Fe] (an all-to-all over the
+    ranks).  Every token is routed as usual; only the assignments to
+    those experts are computed or combined, and y is their share of the
+    output (the ranks' shares sum to it).
+    `aux_reduce` is `router_aux_loss`'s `reduce`.
 
     Returns (y with x's shape in `dtype`, aux_loss float32 scalar)."""
     lead = x.shape[:-1]
@@ -114,8 +136,19 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
 
     xg = x.reshape(G, Tg, D)
     probs, gate_vals, gate_idx = route(xg, router_w, cfg)
-    aux = router_aux_loss(probs, gate_idx, E) * cfg.aux_loss_weight
+    aux = router_aux_loss(probs, gate_idx, E, aux_reduce) * cfg.aux_loss_weight
     slot, keep, token, order = dispatch(gate_idx, C, E)
+
+    def own(keep, slot):
+        """experts [lo, hi) only: other assignments go to the trash row"""
+        lo, hi = experts
+        keep = keep & (slot >= lo * C) & (slot < hi * C)
+        n = hi - lo
+        return keep, torch.where(keep, slot - lo * C,
+                                 torch.full_like(slot, n * C)), n
+
+    if experts is not None and exchange is None:
+        keep, slot, E = own(keep, slot)
 
     # scatter the tokens into [G, E * C + 1, D]; the trash row is dropped
     buf = torch.zeros((G, E * C + 1, D), dtype=dtype, device=x.device)
@@ -131,8 +164,13 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
     h = torch.bmm(xe, w_gate.to(dtype))
     u = torch.bmm(xe, w_up.to(dtype))
     del xe
-    ye = torch.bmm(F.silu(h) * u, w_down.to(dtype))          # [E, G * C, D]
+    act = F.silu(h) * u
     del h, u
+    if exchange is not None:                 # experts [lo, hi), every column
+        act = exchange(act)
+        keep, slot, E = own(keep, slot)
+    ye = torch.bmm(act, w_down.to(dtype))                     # [E, G * C, D]
+    del act
     flat = ye.reshape(E, G, C, D).transpose(0, 1).reshape(G, E * C, D)
 
     # ---- combine -----------------------------------------------------------

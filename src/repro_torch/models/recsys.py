@@ -164,6 +164,17 @@ class RecSysModel(nn.Module):
     def device(self) -> torch.device:
         return self.table.device
 
+    def take(self, name: str, idx: torch.Tensor) -> torch.Tensor:
+        """Rows of the table `name` at idx [...] -> [..., D].  The
+        dry-run's row-sharded model (launch/steps.py) overrides this and
+        `bag`: every lookup of the forwards goes through them."""
+        return _take(getattr(self, name), idx)
+
+    def bag(self, name: str, rows: torch.Tensor) -> torch.Tensor:
+        """Bag sums of the table `name` over rows [B, F] -> [B, D]
+        (`ops.segment_bag`: the embedding-bag kernel on the card)."""
+        return ops.segment_bag(getattr(self, name), rows)
+
 
 @torch.no_grad()
 def init_params(cfg: RecSysConfig, generator: torch.Generator,
@@ -205,7 +216,7 @@ def _rows(model: RecSysModel, ids: torch.Tensor) -> torch.Tensor:
 
 def field_embed(model: RecSysModel, ids: torch.Tensor) -> torch.Tensor:
     """ids: [B, F] per-field local ids -> [B, F, d]."""
-    return _take(model.table, _rows(model, ids))
+    return model.take("table", _rows(model, ids))
 
 
 def _ln(x, scale):
@@ -224,9 +235,9 @@ def fm_forward(model: RecSysModel, ids: torch.Tensor) -> torch.Tensor:
     card); the square term gathers the rows themselves."""
     dt = model.cfg.dtype
     rows = _rows(model, ids)
-    v = _take(model.table, rows).to(dt)                        # [B, F, d]
-    lin = ops.segment_bag(model.w_lin, rows)[:, 0].to(dt)      # [B]
-    s = ops.segment_bag(model.table, rows).to(dt)              # [B, d]
+    v = model.take("table", rows).to(dt)                       # [B, F, d]
+    lin = model.bag("w_lin", rows)[:, 0].to(dt)                # [B]
+    s = model.bag("table", rows).to(dt)                        # [B, d]
     pair = 0.5 * (s * s - (v * v).sum(dim=1)).sum(-1)          # sum-square trick
     return (model.b.to(dt) + lin + pair).float()
 
@@ -258,7 +269,7 @@ def bst_forward(model: RecSysModel, ids: torch.Tensor, hist: torch.Tensor,
     B, S = hist.shape
     seq_ids = torch.cat([hist, target[:, None]], dim=1)            # [B, S+1]
     valid = seq_ids >= 0
-    seq = _take(model.item_table, seq_ids.clamp(min=0)).to(dt)
+    seq = model.take("item_table", seq_ids.clamp(min=0)).to(dt)
     seq = seq * valid[..., None].to(dt) + model.pos_embed.to(dt)[None]
     nh = cfg.bst_heads
     hd = d // nh
@@ -290,7 +301,7 @@ def mind_interests(model: RecSysModel, hist: torch.Tensor) -> torch.Tensor:
     B, S = hist.shape
     K = cfg.n_interests
     valid = hist >= 0
-    e = _take(model.item_table, hist.clamp(min=0)).to(dt)
+    e = model.take("item_table", hist.clamp(min=0)).to(dt)
     e = e * valid[..., None].to(dt)
     u = e @ model.s_matrix.to(dt)                                  # behavior caps
     # routing logits b_ks: zeros, then iterate (the reference's choice)
@@ -313,7 +324,7 @@ def mind_train_logits(model: RecSysModel, hist: torch.Tensor,
     """Label-aware attention + in-batch sampled softmax logits [B, B]."""
     dt = model.cfg.dtype
     interests = mind_interests(model, hist)                        # [B, K, d]
-    tgt = _take(model.item_table, target.clamp(min=0)).to(dt)
+    tgt = model.take("item_table", target.clamp(min=0)).to(dt)
     att = torch.softmax(torch.einsum("bkd,bd->bk", interests.float(),
                                      tgt.float()) * 2.0, dim=-1)   # pow~2
     user = torch.einsum("bk,bkd->bd", att.to(dt), interests)       # [B, d]
@@ -324,7 +335,7 @@ def mind_retrieval_scores(model: RecSysModel, hist: torch.Tensor,
                           cand: torch.Tensor) -> torch.Tensor:
     """hist [B, S]; cand [C] -> scores [B, C] = max over interests."""
     interests = mind_interests(model, hist)
-    ce = _take(model.item_table, cand).to(model.cfg.dtype)
+    ce = model.take("item_table", cand).to(model.cfg.dtype)
     s = torch.einsum("bkd,cd->bkc", interests.float(), ce.float())
     return s.amax(dim=1)
 
@@ -338,7 +349,7 @@ def loss_fn(model: RecSysModel, batch: dict):
     over `mind_train_logits` (target b is row b's label) with its top-1
     accuracy `acc`; the CTR models' numerically stable binary cross
     entropy on `label` with `auc_proxy`, the Pearson correlation of
-    sigmoid(logit) and the label (`jnp.corrcoef`)."""
+    sigmoid(logit) and the label (`jnp.corrcoef`'s arithmetic)."""
     if model.cfg.model == "mind":
         logits = mind_train_logits(model, batch["hist"], batch["target"])
         labels = torch.arange(logits.shape[0], device=logits.device)
@@ -350,8 +361,19 @@ def loss_fn(model: RecSysModel, batch: dict):
     y = batch["label"].float()
     loss = torch.mean(torch.clamp(logit, min=0) - logit * y
                       + torch.log1p(torch.exp(-logit.abs())))
-    auc = torch.corrcoef(torch.stack([torch.sigmoid(logit), y]))[0, 1]
-    return loss, {"auc_proxy": auc}
+    return loss, {"auc_proxy": _corrcoef(torch.sigmoid(logit), y)}
+
+
+def _corrcoef(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Pearson correlation of two [B] tensors, `jnp.corrcoef(...)[0, 1]`'s
+    arithmetic (the covariance over the two standard deviations, clipped
+    to [-1, 1]), in tensor ops alone (`torch.corrcoef` reads its data on
+    the host, which a fake-tensor pass cannot)."""
+    x = torch.stack([a, b])
+    x = x - x.mean(dim=1, keepdim=True)
+    c = x @ x.T / max(x.shape[1] - 1, 1)
+    d = torch.sqrt(torch.diagonal(c))
+    return (c[0, 1] / d[0] / d[1]).clamp(-1.0, 1.0)
 
 
 def serve_scores(model: RecSysModel, batch: dict) -> torch.Tensor:

@@ -154,19 +154,29 @@ class DecoderLayer(nn.Module):
                          cfg.rope_theta)
         return q, k, v.reshape(B, S, cfg.n_kv_heads, cfg.hd)
 
+    def out(self, o: torch.Tensor) -> torch.Tensor:
+        """The attention output o [..., Hq, hd] through wo: [..., D]."""
+        return o.reshape(*o.shape[:-2], -1) @ self.wo.to(self.cfg.dtype)
+
+    def mlp(self, h: torch.Tensor, dropless: bool = True, aux_reduce=None):
+        """(the MLP or MoE output of h, the residual normed by ln2, the
+        layer's aux loss: float32, 0 for a dense layer); `aux_reduce` is
+        `moe_ffn`'s."""
+        cfg = self.cfg
+        if cfg.moe:
+            return moe_ffn(h, self.router, self.wg, self.wu, self.wd,
+                           cfg.moe, cfg.dtype, dropless=dropless,
+                           aux_reduce=aux_reduce)
+        y = L.swiglu(h, self.wg, self.wu, self.wd, cfg.dtype)
+        return y, torch.zeros((), dtype=torch.float32, device=h.device)
+
     def mlp_out(self, x: torch.Tensor, o: torch.Tensor,
-                dropless: bool = True):
+                dropless: bool = True, aux_reduce=None):
         """(residual after attention and the MLP or MoE, the layer's aux
         loss: float32, 0 for a dense layer): o is [..., Hq, hd]."""
-        cfg = self.cfg
-        x = x + o.reshape(*o.shape[:-2], -1) @ self.wo.to(cfg.dtype)
-        h = L.rms_norm(x, self.ln2)
-        if cfg.moe:
-            y, aux = moe_ffn(h, self.router, self.wg, self.wu, self.wd,
-                             cfg.moe, cfg.dtype, dropless=dropless)
-            return x + y, aux
-        y = L.swiglu(h, self.wg, self.wu, self.wd, cfg.dtype)
-        return x + y, torch.zeros((), dtype=torch.float32, device=x.device)
+        x = x + self.out(o)
+        y, aux = self.mlp(L.rms_norm(x, self.ln2), dropless, aux_reduce)
+        return x + y, aux
 
     def attn_out(self, x: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
         """Residual after attention and the MLP (or the MoE, dropless)."""
@@ -186,12 +196,12 @@ class DecoderLayer(nn.Module):
         return self.attn_out(x, o), k, v
 
     def block(self, x: torch.Tensor, positions: torch.Tensor,
-              dropless: bool = True):
+              dropless: bool = True, aux_reduce=None):
         """x [B, S, D] -> (x', aux): the layer as `forward` of the whole
         model runs it (training: `dropless=False`, the MoE's capacity
         dispatch)."""
         o = self.attention(x, positions)[3]
-        return self.mlp_out(x, o, dropless)
+        return self.mlp_out(x, o, dropless, aux_reduce)
 
 
 class Transformer(nn.Module):
