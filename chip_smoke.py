@@ -4910,7 +4910,8 @@ def _fused(ops):
 def _ab_kword(torch, kw_blob):
     """The K-word kinds through `tree`'s additional engine on the pickled
     index: one warm-up batch, then each kind's batch five times (p50 of
-    the batch's host seconds and of its `device` seconds); the CUDA
+    the batch's host seconds and of its steps' host seconds from launch
+    to results on the host, `timings["device"]`); the CUDA
     kernels of the kind's bucket with the most groups, and of that
     bucket's K-way join (the tree's own `kword_found`: its delta-mask
     launch and window scan), by torch.profiler; a digest of the
@@ -4930,21 +4931,21 @@ def _ab_kword(torch, kw_blob):
     out, digest = {}, hashlib.sha256()
     for kind, reqs in data["kinds"].items():
         reqs = batch(reqs)
-        lat, dev = [], []
+        lat, step_s = [], []
         for rep in range(5):
             ex.timings["device"] = 0.0
             t0 = time.perf_counter()
             resp = eng.search_batch(reqs)
             torch.cuda.synchronize()
             lat.append(time.perf_counter() - t0)
-            dev.append(ex.timings["device"])
+            step_s.append(ex.timings["device"])
             if rep == 0:
                 for r in resp:
                     digest.update(r.doc.tobytes() + r.pos.tobytes())
                     if r.anchor_scores is not None:
                         digest.update(r.anchor_scores.tobytes())
         out[f"{kind}_batch_p50_ms"] = percentile(lat, 50) * 1e3
-        out[f"{kind}_device_s_p50"] = percentile(dev, 50)
+        out[f"{kind}_step_host_s_p50"] = percentile(step_s, 50)
         # the kind's K-word bucket with the most groups (then the most
         # elements), its tables as the executor made them
         buckets = []

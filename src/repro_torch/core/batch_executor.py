@@ -46,7 +46,6 @@ results, just not batched.
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 import torch
@@ -63,6 +62,7 @@ from repro_torch.core.kword import KW_DEVICE_MAX_WINDOW, MODE_KWORD
 from repro_torch.core.planner import MODE_PHRASE, QueryPlan
 from repro_torch.core.postings import (BLOCK, PHRASE_BIAS, POS_BITS,
                                        concat_packed, pad_block_multiple)
+from repro_torch.core.trace import Trace
 from repro_torch.kernels.ops import (I32_SENTINEL, SCORE_DELTA_BITS,
                                      SCORE_DELTA_MASK, banded_delta_mask_rows,
                                      banded_intersect_rows,
@@ -424,12 +424,14 @@ class BatchExecutor:
     O(#queries * #groups) — and O(arena) gather/sort work total regardless
     of the doc-shard count (segmented rows).
 
-    `timings` accumulates host seconds per phase: plan (the engine's
-    planner, added by `search_batch`), rows (tasks segmented into doc-shard
-    rows), tensorize (tables built and copied to the device), device
-    (bucket steps until their results are back on the host), merge (the
-    host merge) and flex (plans routed to the flexible executor); callers
-    reset it as they like."""
+    `trace` (core/trace.py) holds the path's spans and counters:
+    `timings` accumulates host seconds per span (plan, rows, tensorize,
+    merge, flex and the spans nested in and between them; `batch` and
+    `plan` are added by `search_batch`) and `counts` the batches, rows,
+    buckets, steps, copies and flexible plans; callers reset them as they
+    like.  `timings["device"]` is host seconds from a step's first launch
+    until its results are on the host, `launch` + `d2h`, not device
+    time."""
 
     def __init__(self, index: IndexSet, device, flex: Executor | None = None,
                  docs_per_shard: int | None = None, doc_base: int = 0):
@@ -439,8 +441,9 @@ class BatchExecutor:
                                     docs_per_shard=docs_per_shard,
                                     doc_base=doc_base)
         self.flex = flex or Executor(index, self.device)
-        self.timings = dict.fromkeys(
-            ("plan", "rows", "tensorize", "device", "merge", "flex"), 0.0)
+        self.trace = Trace()
+        self.timings = self.trace.seconds
+        self.counts = self.trace.counts
         # packed-key safety: positions (plus bias, the widest dist shift,
         # and the widest band) must fit the 17-bit in-doc field or
         # cross-doc false positives appear
@@ -669,10 +672,42 @@ class BatchExecutor:
             for ti, row_scores in enumerate(np.split(svals, splits)):
                 part[ti].scores = row_scores
 
+    def _to_device(self, t: dict, ranked: bool) -> dict:
+        """A chunk's tables on the device, counted.  The score columns are
+        read only by ranked steps: they stay off the copies of unranked
+        ones."""
+        with self.trace.span("h2d"):
+            tt = {k: torch.from_numpy(v).to(self.device)
+                  for k, v in t.items()
+                  if ranked or k not in ("score_bias", "score_from_dist")}
+        c = self.counts
+        c["h2d_copies"] += len(tt)
+        c["h2d_bytes"] += sum(t[k].nbytes for k in tt)
+        return tt
+
+    def _finish_step(self, part: list, launch):
+        """One step of a chunk whose tables are on the device: `launch()`
+        enqueues it, its results come back to the host, and each row of
+        `part` takes its keys."""
+        tr, c = self.trace, self.counts
+        with tr.span("device"):
+            with tr.span("launch"):
+                out = launch()
+            with tr.span("d2h"):
+                out = [x.cpu().numpy() for x in out]
+        c["steps"] += 1
+        c["d2h_copies"] += len(out)
+        c["d2h_bytes"] += sum(x.nbytes for x in out)
+        with tr.span("scatter"):
+            self._scatter_row_keys(part, *out)
+
     def _run_rows(self, rows: list):
-        buckets: dict = {}
-        for row in rows:
-            buckets.setdefault(self._bucket_key(row), []).append(row)
+        tr = self.trace
+        with tr.span("bucket"):
+            buckets: dict = {}
+            for row in rows:
+                buckets.setdefault(self._bucket_key(row), []).append(row)
+        self.counts["buckets"] += len(buckets)
         d = self.dev
         for (G, F, P0, P, C, M, sortfree, ranked, kword), rs in buckets.items():
             per_task = F * P0 + (G - 1) * F * P
@@ -681,24 +716,14 @@ class BatchExecutor:
             chunk = max(1, GATHER_BUDGET // per_task)
             for lo in range(0, len(rs), chunk):
                 part = rs[lo:lo + chunk]
-                t0 = time.perf_counter()
-                # tight T padding: big-P buckets usually hold 1-4 rows
-                T_pad = _next_pow2(len(part), floor=4)
-                t = self._tensorize_bucket(part, G, F, C, M, T_pad)
-                # the score columns are read only by ranked buckets: keep
-                # them off the copies of unranked ones
-                tt = {k: torch.from_numpy(v).to(self.device)
-                      for k, v in t.items()
-                      if ranked or k not in ("score_bias", "score_from_dist")}
-                t1 = time.perf_counter()
-                out = bucket_step_math(d.device_arena, tt, P0=P0, P=P,
-                                       presorted=sortfree, ranked=ranked,
-                                       kword=kword)
-                out = [x.cpu().numpy() for x in out]
-                t2 = time.perf_counter()
-                self._scatter_row_keys(part, *out)
-                self.timings["tensorize"] += t1 - t0
-                self.timings["device"] += t2 - t1
+                with tr.span("tensorize"):
+                    # tight T padding: big-P buckets usually hold 1-4 rows
+                    T_pad = _next_pow2(len(part), floor=4)
+                    t = self._tensorize_bucket(part, G, F, C, M, T_pad)
+                    tt = self._to_device(t, ranked)
+                self._finish_step(part, lambda: bucket_step_math(
+                    d.device_arena, tt, P0=P0, P=P, presorted=sortfree,
+                    ranked=ranked, kword=kword))
 
     # -- merge (mirrors Executor.execute) -----------------------------------
 
@@ -737,37 +762,43 @@ class BatchExecutor:
         """Requests align 1:1 with plans and carry ranking / top_k; plans
         stay the executor's input so escape routing and table building see
         resolved fetches only."""
-        t0 = time.perf_counter()
+        tr, c = self.trace, self.counts
         tasks: list[_Task] = []
         flex_plans: dict[int, QueryPlan] = {}
         plan_tasks: dict[int, list] = {}
-        for i, plan in enumerate(plans):
-            start = len(tasks)
-            if self._build_tasks(i, plan, tasks, ranked=requests[i].rank):
-                plan_tasks[i] = tasks[start:]
-            else:
-                flex_plans[i] = plan
-        self.timings["rows"] += time.perf_counter() - t0
+        with tr.span("rows"):
+            for i, plan in enumerate(plans):
+                start = len(tasks)
+                if self._build_tasks(i, plan, tasks, ranked=requests[i].rank):
+                    plan_tasks[i] = tasks[start:]
+                else:
+                    flex_plans[i] = plan
+        c["flex_plans"] += len(flex_plans)
         # round 1: main rows; round 2: only the fallback rows whose main
         # result came back empty (mirrors the flexible executor, which never
         # touches stream 1 when the positional search hits)
-        self._run_rows([r for t in tasks if not t.fallback for r in t.rows])
-        main_keys = {(t.plan_i, t.subplan_i): t.collect_keys()
-                     for t in tasks if not t.fallback}
-        self._run_rows([r for t in tasks if t.fallback
+        main = [r for t in tasks if not t.fallback for r in t.rows]
+        self._run_rows(main)
+        with tr.span("collect"):
+            main_keys = {(t.plan_i, t.subplan_i): t.collect_keys()
+                         for t in tasks if not t.fallback}
+            fallback = [r for t in tasks if t.fallback
                         and len(main_keys.get((t.plan_i, t.subplan_i),
                                               np.empty(0))) == 0
-                        for r in t.rows])
+                        for r in t.rows]
+        self._run_rows(fallback)
+        c["rows"] += len(main) + len(fallback)
+        c["fallback_rows"] += len(fallback)
         out: list[SearchResponse | None] = [None] * len(plans)
         for i, plan in enumerate(plans):
-            t0 = time.perf_counter()
             if i in flex_plans:
-                out[i] = self.flex.execute(plan, request=requests[i])
-                self.timings["flex"] += time.perf_counter() - t0
+                with tr.span("flex"):
+                    out[i] = self.flex.execute(plan, request=requests[i])
             else:
-                task_map = {(t.subplan_i, t.fallback): t for t in plan_tasks[i]}
-                out[i] = self._merge_plan(plan, task_map, requests[i])
-                self.timings["merge"] += time.perf_counter() - t0
+                with tr.span("merge"):
+                    task_map = {(t.subplan_i, t.fallback): t
+                                for t in plan_tasks[i]}
+                    out[i] = self._merge_plan(plan, task_map, requests[i])
         return out
 
 

@@ -25,8 +25,6 @@ nested-loop proximity relevance per arXiv:2108.00410);
 """
 from __future__ import annotations
 
-import time
-
 import numpy as np
 
 from repro_torch.core.api import SearchRequest, SearchResponse
@@ -79,11 +77,14 @@ class _BatchSearchMixin:
         plan-compiled batched executor — same results as per-query
         `search`, one device step per shape bucket."""
         requests = list(requests)
-        t0 = time.perf_counter()
-        plans = [self._plan(r) for r in requests]
         ex = self.batch_executor
-        ex.timings["plan"] += time.perf_counter() - t0
-        return ex.execute_batch(plans, requests=requests)
+        tr = ex.trace
+        with tr.span("batch", batch=ex.counts["batches"],
+                     requests=len(requests)):
+            ex.counts["batches"] += 1
+            with tr.span("plan"):
+                plans = [self._plan(r) for r in requests]
+            return ex.execute_batch(plans, requests=requests)
 
 
 class AdditionalIndexEngine(_BatchSearchMixin):

@@ -132,8 +132,8 @@ class TokenBucket:
 
 @dataclasses.dataclass
 class FrontStats:
-    """Counters + latency reservoir; the no-silent-drop ledger
-    (submitted == served_exact + served_degraded + shed, always)."""
+    """Counters + latency and queue-wait reservoirs; the no-silent-drop
+    ledger (submitted == served_exact + served_degraded + shed, always)."""
     submitted: int = 0
     served_exact: int = 0
     served_degraded: int = 0
@@ -148,6 +148,9 @@ class FrontStats:
     retries: int = 0
     shed_reasons: dict = dataclasses.field(default_factory=dict)
     latencies_ms: list = dataclasses.field(default_factory=list)
+    queue_wait_ms: list = dataclasses.field(default_factory=list)
+                                # each dispatched ticket's arrival to its
+                                # batch's dispatch
 
     @property
     def responded(self) -> int:
@@ -623,9 +626,11 @@ class FrontDoor:
         return False
 
     def _dispatch_batch(self, batch: list):
+        now = self.clock()
         with self._stats_lock:
             self.stats.batches += 1
-        now = self.clock()
+            self.stats.queue_wait_ms.extend((now - t.arrival) * 1000.0
+                                            for t in batch)
         buckets: dict[str, list] = {"unranked": [], "ranked": [], "flex": []}
         for t in batch:
             if now > t.deadline:

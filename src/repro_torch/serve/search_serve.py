@@ -27,7 +27,6 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-import time
 
 import numpy as np
 import torch
@@ -189,8 +188,11 @@ class _ServeBatchExecutor(BatchExecutor):
     splitting), flex-escape routing and the merge, and overrides the caps
     (fixed table limits from cfg) and `_run_rows` (tiered chunks through the
     serve step, fetch starts remapped into each owner shard's arena).
-    `timings` keeps the base executor's phases; `slab_stats` counts steps
-    and the live share of their rows and elements."""
+    `timings` and `counts` keep the base executor's spans and counters
+    (`timings["device"]` is host seconds from a step's launch until its
+    results are on the host, `launch` + `d2h`, not device time);
+    `slab_stats` counts steps and the live share of their rows and
+    elements."""
 
     def __init__(self, index: IndexSet, cfg: SearchServeConfig, mesh,
                  docs_per_shard: int | None = None):
@@ -368,51 +370,54 @@ class _ServeBatchExecutor(BatchExecutor):
             return
         cfg = self.cfg
         cap = (cfg.groups, cfg.fetch_slots, cfg.p_seed, cfg.postings_pad)
-        tiers = self._tier_ladder(rows)
-        assign: dict = {}
-        for row in rows:
-            need = self._row_shape(row)
-            tier = next((t for t in tiers
-                         if all(a <= b for a, b in zip(need, t))), cap)
-            assign.setdefault(tier, []).append(row)
+        tr = self.trace
+        with tr.span("bucket"):
+            tiers = self._tier_ladder(rows)
+            assign: dict = {}
+            for row in rows:
+                need = self._row_shape(row)
+                tier = next((t for t in tiers
+                             if all(a <= b for a, b in zip(need, t))), cap)
+                assign.setdefault(tier, []).append(row)
+        self.counts["buckets"] += len(assign)
         for (G, F, P0, Pc), rs in assign.items():
             step = self._step_for(ranked, P0, Pc, kword)
             for lo in range(0, len(rs), cfg.task_rows):
                 part = rs[lo:lo + cfg.task_rows]
-                t0 = time.perf_counter()
-                # tight T: pow2 chunks instead of the full task_rows slab
-                T = min(cfg.task_rows, _next_pow2(len(part), floor=4))
-                t = self._tensorize_bucket(part, G, F, cfg.check_slots,
-                                           cfg.check_forms, T)
-                owner = np.zeros(T, np.int32)
-                owner[:len(part)] = [row.shard // self.shards_per_dp
-                                     for row in part]
-                # global fetch starts -> each owner shard's local arena: one
-                # searchsorted per dp shard touched
-                live = t["length"] > 0
-                for dd in np.unique(owner[:len(part)]):
-                    m = (owner == dd)[:, None, None] & live
-                    t["start"][m] = np.searchsorted(self._sel[dd],
-                                                    t["start"][m])
-                t["owner"] = owner
-                st = self.slab_stats
-                st["steps"] += 1
-                st["slab_rows"] += T
-                st["live_rows"] += len(part)
-                st["slab_elems"] += T * self._tier_volume((G, F, P0, Pc))
-                st["live_elems"] += sum(
-                    ln for row in part for g in row.groups
-                    for _, _, ln in g.slots)
-                # the score columns are read only by ranked steps
-                tt = {k: torch.from_numpy(v).to(self.device)
-                      for k, v in t.items()
-                      if ranked or k not in ("score_bias", "score_from_dist")}
-                t1 = time.perf_counter()
-                out = [x.cpu().numpy() for x in step(self.arenas, tt)]
-                t2 = time.perf_counter()
-                self._scatter_row_keys(part, *out)
-                self.timings["tensorize"] += t1 - t0
-                self.timings["device"] += t2 - t1
+                with tr.span("tensorize"):
+                    tt = self._serve_tables(part, G, F, P0, Pc, ranked)
+                self._finish_step(part, lambda: step(self.arenas, tt))
+
+    def _serve_tables(self, part: list, G: int, F: int, P0: int, Pc: int,
+                      ranked: bool) -> dict:
+        """A chunk's serve tables on the device: the base tables at the
+        tier's shape, fetch starts remapped into each owner shard's arena,
+        the owner column; counted in `slab_stats`."""
+        cfg = self.cfg
+        # tight T: pow2 chunks instead of the full task_rows slab
+        T = min(cfg.task_rows, _next_pow2(len(part), floor=4))
+        t = self._tensorize_bucket(part, G, F, cfg.check_slots,
+                                   cfg.check_forms, T)
+        owner = np.zeros(T, np.int32)
+        owner[:len(part)] = [row.shard // self.shards_per_dp
+                             for row in part]
+        # global fetch starts -> each owner shard's local arena: one
+        # searchsorted per dp shard touched
+        live = t["length"] > 0
+        for dd in np.unique(owner[:len(part)]):
+            m = (owner == dd)[:, None, None] & live
+            t["start"][m] = np.searchsorted(self._sel[dd],
+                                            t["start"][m])
+        t["owner"] = owner
+        st = self.slab_stats
+        st["steps"] += 1
+        st["slab_rows"] += T
+        st["live_rows"] += len(part)
+        st["slab_elems"] += T * self._tier_volume((G, F, P0, Pc))
+        st["live_elems"] += sum(
+            ln for row in part for g in row.groups
+            for _, _, ln in g.slots)
+        return self._to_device(t, ranked)
 
 
 class SearchServe:
@@ -463,10 +468,15 @@ class SearchServe:
     def search_batch(self, requests) -> list[SearchResponse]:
         """A batch of SearchRequests through the serve step."""
         requests = list(requests)
-        t0 = time.perf_counter()
-        for r in requests:
-            if not isinstance(r, SearchRequest):
-                raise TypeError(f"expected a SearchRequest, got {type(r)}")
-        plans = [self.plan_request(r) for r in requests]
-        self.executor.timings["plan"] += time.perf_counter() - t0
-        return self.execute_batch(plans, requests)
+        ex = self.executor
+        tr = ex.trace
+        with tr.span("batch", batch=ex.counts["batches"],
+                     requests=len(requests)):
+            ex.counts["batches"] += 1
+            with tr.span("plan"):
+                for r in requests:
+                    if not isinstance(r, SearchRequest):
+                        raise TypeError(
+                            f"expected a SearchRequest, got {type(r)}")
+                plans = [self.plan_request(r) for r in requests]
+            return self.execute_batch(plans, requests)

@@ -523,6 +523,28 @@ def test_front_open_loop_smoke_no_shedding(shard_world):
         _close(front)
 
 
+def test_front_queue_wait_one_entry_per_dispatched_ticket(shard_world):
+    """Each dispatched ticket leaves its queue wait (arrival to its batch's
+    dispatch): one entry a ticket, in queue order, between 0 and the
+    ticket's latency."""
+    front = FrontDoor(shard_world["index"],
+                      cfg=FrontDoorConfig(cache_capacity=0, **FAST_CFG),
+                      device="cpu")
+    try:
+        tickets = []
+        for r in shard_world["requests"][:12]:
+            tickets.append(front.submit(r))
+            time.sleep(0.002)
+        resps = [t.result(SLOW) for t in tickets]
+    finally:
+        _close(front)
+    st = front.stats
+    assert st.shed == 0 and st.batches >= 1
+    assert len(st.queue_wait_ms) == len(tickets)
+    for wait, resp in zip(st.queue_wait_ms, resps):
+        assert 0.0 <= wait <= resp.latency_ms
+
+
 def test_front_concurrent_clients_ledger_balances(shard_world, reference):
     """More submitting threads than cores, with a short switch interval:
     the stats ledger, the cache and the token buckets are shared state, and
